@@ -1,0 +1,595 @@
+"""De-VertiFL training protocol (Algorithms 1 + 2), plus the
+non-federated baseline and the VertiComb-style backward-exchange
+baseline: the port of ``repro.core.protocol``, synchronous path only.
+
+All n clients are simulated in one process by stacking per-client
+parameters on a leading axis (``PaperMLP`` holds them so); the exchange
+and FedAvg are the only cross-client dataflows, and they are explicit.
+
+Pieces, each named after its counterpart in the JAX package:
+
+  make_first_layer_fn  the slice-aware first layer (lanes below)
+  make_step_fn         one optimizer step for all clients (per mode)
+  make_perm_fn         epoch shuffles drawn from a torch.Generator
+  make_round_fn        a round: every batch of every epoch, then FedAvg
+  make_h_all_fn        per-client activations at the exchange point
+  make_predict_fn      per-client inference with the evaluation exchange
+
+First-layer lanes (``ProtocolConfig.first_layer``):
+
+  masked   the paper-literal reference: the [n, B, F] zero-padded batch
+           through dense full-width matmuls
+  slice    x[:, off:off+F_i] @ W[i, off:off+F_i] per client
+  kernel   every client's slice in one launch of the hand-written
+           Hopper kernel ``vfl_matmul_clients`` (the counterpart of the
+           reference's ``pallas`` lane); its plain version on the CPU
+  auto     kernel on a CUDA device, slice on the CPU
+
+The lanes differ only in float summation order, so trajectories agree
+to allclose, not bitwise.
+
+Padded client axes: ``ProtocolConfig.max_clients`` pads the client axis
+with dead slots; every cross-client reduction honours
+``LayoutArrays.client_mask`` (exchange sum, FedAvg weights, loss means
+by a reciprocal multiply), so the live clients' trajectories are
+bit-for-bit the unpadded run's.
+
+Engines: the reference runs a round as one ``lax.scan`` ("scan") or as
+a host loop over the jitted step ("python").  Both names are accepted
+here and run the same Python loop over the round's batch-index matrix;
+capturing the step in a CUDA graph is later work.
+
+Not ported yet (they raise NotImplementedError): non-sync ``schedule``,
+``fault``, ``transform`` and ``obs`` plans -- ROADMAP.md, Queue 1
+item 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import partition as PT
+from repro_torch.core.exchange import fedavg, hidden_output_exchange
+from repro_torch.data import registry as DR
+from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+from repro_torch.metrics import accuracy, f1_score
+from repro_torch.models.mlp_model import PaperMLP
+from repro_torch.optim import adam
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclass
+class ProtocolConfig:
+    dataset: str = "mnist"              # mnist | fmnist | titanic | bank
+    n_clients: int = 3
+    rounds: int = 5
+    epochs: int = 5
+    batch_size: int = 64
+    lr: float = 1e-3
+    # Where HiddenOutputExchange happens: -1 exchanges the logits
+    # (Algorithm 1), k>=1 the output of hidden layer k, 0 the raw
+    # zero-padded input (masked lane only).
+    exchange_at: int = -1
+    mode: str = "devertifl"             # devertifl | non_federated | verticomb
+    fedavg: bool = True
+    seed: int = 0
+    n_samples: Optional[int] = None     # dataset size override (speed)
+    engine: str = "scan"                # scan | python: the same loop here
+    first_layer: str = "auto"           # auto | kernel | slice | masked
+    # Not ported yet: only the defaults run (ROADMAP.md Queue 1 item 8).
+    schedule: str = "sync"
+    fault: str = "none"
+    transform: str = "none"
+    obs: str = "none"
+    # Pad the client axis to this length with dead (masked) slots.
+    max_clients: Optional[int] = None
+    # Explicit unequal per-client feature counts (sum to the feature
+    # count); None keeps the registry partition strategy.
+    partition_sizes: Optional[Tuple[int, ...]] = None
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def padded_clients(self) -> int:
+        """Static client-axis length (max_clients or n_clients)."""
+        return self.max_clients or self.n_clients
+
+
+_UNPORTED_DEFAULTS = {"schedule": "sync", "fault": "none",
+                      "transform": "none", "obs": "none"}
+ENGINES = ("scan", "python")
+FIRST_LAYERS = ("auto", "kernel", "masked", "slice")
+MODES = ("devertifl", "non_federated", "verticomb")
+
+
+def check_config(pcfg) -> None:
+    """Refuse what this slice of the port does not run."""
+    for field, default in _UNPORTED_DEFAULTS.items():
+        if getattr(pcfg, field) != default:
+            raise NotImplementedError(
+                f"{field}={getattr(pcfg, field)!r} is not ported to "
+                f"repro_torch yet (only {field}={default!r}); see "
+                "ROADMAP.md, Queue 1 item 8")
+    if pcfg.engine not in ENGINES:
+        raise ValueError(f"unknown engine {pcfg.engine!r}; engines: "
+                         f"{ENGINES}")
+    if pcfg.mode not in MODES:
+        raise ValueError(f"unknown mode {pcfg.mode!r}; modes: {MODES}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The federation's device: CUDA unless the caller names another.
+    Raises when CUDA is asked for and absent; there is no fallback.
+    On CUDA, TF32 is switched off for matmuls and cuDNN: the reference
+    is float32."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: repro_torch runs on the GPU "
+                "unless the caller passes device='cpu'")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def arch_for(dataset: str) -> str:
+    """Model-config name for a dataset, via the dataset registry."""
+    return DR.get_dataset(dataset).arch
+
+
+def auto_first_layer(device) -> str:
+    """What first_layer="auto" means on ``device``."""
+    return "kernel" if torch.device(device).type == "cuda" else "slice"
+
+
+def resolve_first_layer(pcfg, device) -> str:
+    """Map the first_layer knob to a concrete lane for ``device``."""
+    fl = pcfg.first_layer
+    if fl not in FIRST_LAYERS:
+        raise ValueError(f"unknown first_layer {fl!r}; registered "
+                         f"first_layers: {', '.join(FIRST_LAYERS)}")
+    if fl == "auto":
+        fl = auto_first_layer(device)
+    if pcfg.exchange_at == 0:
+        # exchanging the raw zero-padded input predates layer 0; only
+        # the masked formulation expresses it
+        fl = "masked"
+    return fl
+
+
+# ---------------------------------------------------------------------------
+# pure protocol pieces; activations are [n_clients, B, .] stacks
+# ---------------------------------------------------------------------------
+def client_hidden(model, exchange_at, p, xm):
+    """Forward up to the exchange point (hidden layer k, or logits)."""
+    if exchange_at == -1:
+        return model.head(model.forward_hidden(xm, params=p), params=p)
+    return model.forward_hidden(xm, upto=exchange_at, params=p)
+
+
+def client_hidden_from(model, exchange_at, p, h1):
+    """client_hidden, starting from the post-ReLU layer-0 output."""
+    if exchange_at == -1:
+        return model.head(model.forward_from(h1, start=1, params=p),
+                          params=p)
+    return model.forward_from(h1, start=1, upto=exchange_at, params=p)
+
+
+def rest(model, exchange_at, p, h):
+    """Forward from the exchange point to logits."""
+    if exchange_at == -1:
+        return h
+    for i in range(exchange_at, model.n_hidden):
+        h = torch.relu(torch.matmul(h, p[f"layer_{i}"]["kernel"])
+                       + p[f"layer_{i}"]["bias"].unsqueeze(-2))
+    return model.head(h, params=p)
+
+
+def _ce(logits, labels):
+    """[n, B, C] logits, [B] labels -> [n] per-client mean CE."""
+    logp = torch.log_softmax(logits, dim=-1)
+    idx = labels.expand(logits.shape[0], -1).unsqueeze(-1)
+    return -logp.gather(-1, idx).squeeze(-1).mean(dim=-1)
+
+
+def _masked_mean(values, client_mask):
+    """Mean over live clients: sum(v * mask) * (1/n_live)."""
+    return (values * client_mask).sum() * (1.0 / client_mask.sum())
+
+
+def _masked_hidden_sum(h_all, client_mask):
+    """[n, B, H] -> [B, H] exchange sum excluding dead clients."""
+    return (h_all * client_mask[:, None, None]).sum(dim=0)
+
+
+def make_first_layer_fn(model, pcfg, layout, device):
+    """first(params, xb, lay) -> [n_clients, B, H] post-ReLU layer-0
+    activations from the canonical-order [B, F] batch.  ``slice`` reads
+    the layout's static offsets; ``kernel`` passes lay's offset and
+    size tensors to the kernel, so it never reads them on the host.
+    A dead (size-0) client gets relu(bias) in both."""
+    fl = resolve_first_layer(pcfg, device)
+    assert fl != "masked", fl
+    offsets, sizes = layout.offsets, layout.sizes
+
+    if fl == "slice":
+        def first_slice(params, xb, lay):
+            w = params["layer_0"]["kernel"]     # [n, F, H]
+            b = params["layer_0"]["bias"]       # [n, H]
+            outs = []
+            for i, (off, f_i) in enumerate(zip(offsets, sizes)):
+                if f_i == 0:
+                    outs.append(torch.relu(
+                        b[i].expand(xb.shape[0], w.shape[-1])))
+                    continue
+                x_i = xb[:, off:off + f_i]
+                outs.append(torch.relu(x_i @ w[i, off:off + f_i] + b[i]))
+            return torch.stack(outs)
+        return first_slice
+
+    def first_kernel(params, xb, lay):
+        w = params["layer_0"]["kernel"]
+        b = params["layer_0"]["bias"]
+        y = vfl_matmul_clients(xb, w, lay.offsets, lay.offsets, lay.sizes)
+        return torch.relu(y + b.unsqueeze(1))
+    return first_kernel
+
+
+def _leaf_copies(params):
+    """Fresh autograd leaves sharing the parameters' storage, so a step
+    can differentiate any tree (module parameters or plain tensors) and
+    then update the originals in place."""
+    return tree_map(lambda p: p.detach().requires_grad_(), params)
+
+
+def _grads(total, ps):
+    return tree_unflatten(ps, torch.autograd.grad(total, tree_leaves(ps)))
+
+
+def make_step_fn(model, opt, pcfg, layout, device):
+    """One all-clients optimizer step for pcfg.mode.
+
+    step(params, opt_state, lay, xb, yb, step_idx) -> (params,
+    opt_state, mean_loss): params are updated in place (and returned),
+    step_idx is a python int, xb is in canonical column order and
+    mean_loss is the live clients' mean, a 0-d tensor on the device.
+    """
+    fl = resolve_first_layer(pcfg, device)
+    k = pcfg.exchange_at
+
+    if fl == "masked":
+        # the paper-literal reference: whole forward from the [n, B, F]
+        # zero-padded batch; every client's loss depends on its own
+        # parameters alone, so grad(sum of losses) is the per-client
+        # gradient stack (dead clients' included, as in the reference)
+        def devertifl_loss(ps, lay, xm, yb):
+            h_all = client_hidden(model, k, ps, xm)
+            h_sum = _masked_hidden_sum(h_all.detach(), lay.client_mask)
+            # value == full exchanged sum; grad flows only through h_i
+            h = h_all + h_sum - h_all.detach()
+            losses = _ce(rest(model, k, ps, h), yb)
+            return losses.sum(), losses
+
+        def nonfed_loss(ps, lay, xm, yb):
+            losses = _ce(rest(model, k, ps, client_hidden(model, k, ps,
+                                                          xm)), yb)
+            return losses.sum(), losses
+
+        def verticomb_loss(ps, lay, xm, yb):
+            h_all = client_hidden(model, k, ps, xm)
+            h_sum = _masked_hidden_sum(h_all, lay.client_mask)
+            logits = rest(model, k, ps, h_sum.expand_as(h_all))
+            loss = _masked_mean(_ce(logits, yb), lay.client_mask)
+            return loss, None
+
+        loss_fn = {"devertifl": devertifl_loss, "non_federated": nonfed_loss,
+                   "verticomb": verticomb_loss}[pcfg.mode]
+
+        def step(params, opt_state, lay, xb, yb, step_idx):
+            xm = xb[None] * lay.masks[:, None, :]
+            ps = _leaf_copies(params)
+            total, losses = loss_fn(ps, lay, xm, yb)
+            params, opt_state, _ = opt.update(_grads(total, ps), opt_state,
+                                              params, step_idx)
+            loss = total if losses is None else \
+                _masked_mean(losses.detach(), lay.client_mask)
+            return params, opt_state, loss.detach()
+        return step
+
+    # slice/kernel: grads of the masked sum of per-client losses (peer
+    # terms are detached, so loss_i depends on params[i] alone, and the
+    # mask drops dead clients' grads)
+    first = make_first_layer_fn(model, pcfg, layout, device)
+
+    def losses_fn(ps, lay, xb, yb, differentiable=None):
+        h_all = client_hidden_from(model, k, ps, first(ps, xb, lay))
+        if differentiable is not None:
+            h_all = hidden_output_exchange(
+                h_all, differentiable=differentiable,
+                client_mask=lay.client_mask)
+        return _ce(rest(model, k, ps, h_all), yb)          # [n]
+
+    def step(params, opt_state, lay, xb, yb, step_idx):
+        ps = _leaf_copies(params)
+        if pcfg.mode == "verticomb":
+            loss = _masked_mean(losses_fn(ps, lay, xb, yb, True),
+                                lay.client_mask)
+            grads = _grads(loss, ps)
+        else:
+            exchange = False if pcfg.mode == "devertifl" else None
+            losses = losses_fn(ps, lay, xb, yb, exchange)
+            grads = _grads((losses * lay.client_mask).sum(), ps)
+            loss = _masked_mean(losses, lay.client_mask)
+        params, opt_state, _ = opt.update(grads, opt_state, params,
+                                          step_idx)
+        return params, opt_state, loss.detach()
+    return step
+
+
+class PermPlan(NamedTuple):
+    """Epoch-shuffle plan from make_perm_fn.  Each epoch uses
+    n_batches * batch_size samples, so the trailing
+    ``n_train % batch_size`` samples of every epoch's permutation are
+    dropped (n_dropped); a fresh permutation each epoch drops a
+    different subset."""
+    perms: object          # perms(generator) -> [epochs*n_batches, bs]
+    n_batches: int
+    batch_size: int
+    n_dropped: int
+
+
+def make_perm_fn(pcfg, n_train) -> PermPlan:
+    """perms(generator) -> [epochs * n_batches, batch_size] int64 batch
+    indices (a CPU tensor), one independent permutation per epoch, with
+    the tail drop of ``PermPlan``."""
+    bs = min(pcfg.batch_size, n_train)
+    n_batches = n_train // bs
+
+    def perms(generator):
+        order = torch.stack([torch.randperm(n_train, generator=generator)
+                             for _ in range(pcfg.epochs)])
+        return order[:, :n_batches * bs].reshape(
+            pcfg.epochs * n_batches, bs)
+
+    return PermPlan(perms, n_batches, bs, n_train - n_batches * bs)
+
+
+def accepts_client_mask(fn) -> bool:
+    """Whether an aggregation fn's signature takes client_mask=."""
+    try:
+        return "client_mask" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def call_fedavg(fedavg_fn, params, client_mask):
+    """Invoke an aggregation fn, passing client_mask only if its
+    signature accepts it."""
+    if accepts_client_mask(fedavg_fn):
+        return fedavg_fn(params, client_mask=client_mask)
+    return fedavg_fn(params)
+
+
+@torch.no_grad()
+def _assign(params, new):
+    for p, v in zip(tree_leaves(params), tree_leaves(new)):
+        p.copy_(v)
+
+
+def make_round_fn(model, opt, pcfg, n_train, layout, device,
+                  fedavg_fn=None):
+    """One De-VertiFL round: the step over every row of the round's
+    batch-index matrix, then the P2P FedAvg (Algorithm 1 lines 16-19)
+    written into the parameters in place.
+
+    round_fn(params, opt_state, step_idx, idx, xtr, ytr, lay) ->
+    (params, opt_state, step_idx, losses[epochs*n_batches]); idx is the
+    [epochs*n_batches, bs] matrix on the device, xtr in canonical
+    column order.  Losses stay on the device.
+    """
+    do_fedavg = pcfg.fedavg and pcfg.mode != "non_federated"
+    fedavg_fn = fedavg_fn or fedavg
+    padded = layout.n_real < layout.n_clients
+    if do_fedavg and padded and not accepts_client_mask(fedavg_fn):
+        raise ValueError(
+            "custom fedavg_fn must accept a client_mask= keyword when "
+            "the client axis is padded (max_clients > n_clients): a "
+            "mask-blind aggregator would average dead slots' params "
+            "into every live client")
+    step = make_step_fn(model, opt, pcfg, layout, device)
+
+    def round_fn(params, opt_state, step_idx, idx, xtr, ytr, lay):
+        losses = []
+        for batch_idx in idx:
+            xb = xtr.index_select(0, batch_idx)
+            yb = ytr.index_select(0, batch_idx)
+            params, opt_state, loss = step(params, opt_state, lay, xb, yb,
+                                           step_idx)
+            step_idx += 1
+            losses.append(loss)
+        if do_fedavg:
+            with torch.no_grad():
+                _assign(params, call_fedavg(fedavg_fn, params,
+                                            lay.client_mask))
+        return params, opt_state, step_idx, torch.stack(losses)
+
+    return round_fn
+
+
+def make_h_all_fn(model, pcfg, layout, device):
+    """h_all(params, x, lay) -> [n_clients, B, W] per-client activations
+    at the exchange point from a canonical-order [B, F] batch.  Every
+    output row depends only on its own input row."""
+    fl = resolve_first_layer(pcfg, device)
+    k = pcfg.exchange_at
+    if fl == "masked":
+        def h_all_fn(params, x, lay):
+            return client_hidden(model, k, params,
+                                 x[None] * lay.masks[:, None, :])
+        return h_all_fn
+    first = make_first_layer_fn(model, pcfg, layout, device)
+
+    def h_all_fn(params, x, lay):
+        return client_hidden_from(model, k, params, first(params, x, lay))
+    return h_all_fn
+
+
+def make_predict_fn(model, pcfg, layout, device):
+    """predict(params, x, lay) -> [n_clients, B] class predictions from
+    canonical-order x.  Dead padded clients' rows are garbage."""
+    h_all_fn = make_h_all_fn(model, pcfg, layout, device)
+
+    @torch.no_grad()
+    def predict(params, x, lay):
+        h_all = h_all_fn(params, x, lay)
+        if pcfg.mode in ("devertifl", "verticomb"):
+            h_all = hidden_output_exchange(h_all, differentiable=False,
+                                           client_mask=lay.client_mask)
+        logits = rest(model, pcfg.exchange_at, params, h_all)
+        return torch.argmax(logits, dim=-1)
+
+    return predict
+
+
+def train_generators(seed: int):
+    """(init generator, loop generator) for a federation seed: two
+    independent CPU streams, so the initial weights and the epoch
+    permutations do not depend on each other (nor on the device)."""
+    init_ss, loop_ss = np.random.SeedSequence(seed).spawn(2)
+    return tuple(torch.Generator().manual_seed(
+        int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+        for ss in (init_ss, loop_ss))
+
+
+# ---------------------------------------------------------------------------
+class DeVertiFL:
+    """One federation: model, partition, per-client parameters.
+
+    Data is held on ``device`` in the canonical column order of
+    ``self.layout``; ``predict`` takes raw (original-column-order)
+    inputs.  ``device`` defaults to CUDA; pass ``device="cpu"`` to run
+    on the CPU (the kernel lane then runs the kernel's plain version).
+    """
+
+    def __init__(self, pcfg: ProtocolConfig, fedavg_fn=None, device=None):
+        check_config(pcfg)
+        self.pcfg = pcfg
+        self.device = resolve_device(device)
+        self._fedavg_fn = fedavg_fn
+        self.mcfg = get_config(arch_for(pcfg.dataset))
+        self.model = PaperMLP(self.mcfg, pcfg.padded_clients, self.device)
+        xtr, ytr, xte, yte = DR.make_dataset(pcfg.dataset, pcfg.n_samples,
+                                             seed=pcfg.seed)
+        self.xtr, self.ytr, self.xte, self.yte = xtr, ytr, xte, yte
+        self.n_features = self.model.in_features
+        self.layout = PT.make_layout(pcfg.dataset, self.n_features,
+                                     pcfg.n_clients, seed=pcfg.seed,
+                                     max_clients=pcfg.max_clients,
+                                     sizes=pcfg.partition_sizes)
+        self.partition = self.layout.partition[:pcfg.n_clients]
+        self.first_layer = resolve_first_layer(pcfg, self.device)
+        self._lay = self.layout.arrays(self.device)
+
+        def dev(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+        # public masks stay in RAW column order, like the reference's
+        self.masks = dev(PT.masks_for(self.partition, self.n_features),
+                         torch.float32)
+        self._xtr = dev(self.layout.apply(xtr), torch.float32)
+        self._xte = dev(self.layout.apply(xte), torch.float32)
+        self._ytr = dev(ytr, torch.int64)
+        self.opt = adam(pcfg.lr, max_grad_norm=None)
+        self._build_steps()
+
+    def _build_steps(self):
+        pcfg, n_train = self.pcfg, len(self.xtr)
+        plan = make_perm_fn(pcfg, n_train)
+        self.perms = plan.perms
+        self.n_batches, self.bs = plan.n_batches, plan.batch_size
+        self._round = make_round_fn(self.model, self.opt, pcfg, n_train,
+                                    self.layout, self.device,
+                                    fedavg_fn=self._fedavg_fn)
+        self._predict = make_predict_fn(self.model, pcfg, self.layout,
+                                        self.device)
+
+    def set_fedavg(self, fedavg_fn):
+        """Swap the aggregation function (e.g. weighted FedAvg) and
+        rebuild the round."""
+        self._fedavg_fn = fedavg_fn
+        self._build_steps()
+
+    # ------------------------------------------------------------------
+    def init_params(self, generator) -> dict:
+        """A fresh stacked parameter tree on the device, drawn from
+        ``generator`` (live clients first, then dead padding slots)."""
+        return tree_map(lambda t: t.to(self.device),
+                        self.model.init_params(generator))
+
+    def run_round(self, params, opt_state, step_idx, idx):
+        """One round over the [epochs*n_batches, bs] index matrix
+        ``idx`` (e.g. ``self.perms(generator)``), training ``params``
+        in place.  Returns (params, opt_state, step_idx, losses)."""
+        if not isinstance(idx, torch.Tensor):
+            idx = torch.tensor(np.asarray(idx), dtype=torch.int64)
+        idx = idx.to(self.device, torch.int64)
+        if tuple(idx.shape) != (self.pcfg.epochs * self.n_batches,
+                                self.bs):
+            raise ValueError(f"index matrix {tuple(idx.shape)}; this "
+                             "round takes "
+                             f"{(self.pcfg.epochs * self.n_batches, self.bs)}")
+        return self._round(params, opt_state, step_idx, idx, self._xtr,
+                           self._ytr, self._lay)
+
+    def predict(self, params, x):
+        xc = torch.as_tensor(
+            np.ascontiguousarray(self.layout.apply(np.asarray(x))),
+            dtype=torch.float32, device=self.device)
+        return self._predict(params, xc, self._lay)
+
+    def evaluate(self, params):
+        preds = self._predict(params, self._xte, self._lay).cpu().numpy()
+        avg = "macro" if len(np.unique(self.ytr)) > 2 else "binary"
+        f1s = [f1_score(self.yte, preds[i], average=avg)
+               for i in range(self.pcfg.n_clients)]
+        accs = [accuracy(self.yte, preds[i])
+                for i in range(self.pcfg.n_clients)]
+        return {"f1": float(np.mean(f1s)), "acc": float(np.mean(accs)),
+                "f1_per_client": f1s}
+
+    # ------------------------------------------------------------------
+    def train(self, seed=None, eval_every_round=True, engine=None):
+        """Train ``pcfg.rounds`` rounds from weights and permutations
+        drawn from ``train_generators(seed)`` (default ``pcfg.seed``)
+        into the model's parameters.  Returns {"history", "final",
+        "params"}, params a detached copy of the final tree."""
+        pcfg = self.pcfg
+        engine = engine or pcfg.engine
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}")
+        init_gen, loop_gen = train_generators(
+            pcfg.seed if seed is None else seed)
+        self.model.load_params(self.init_params(init_gen))
+        params = self.model.params()
+        opt_state = self.opt.init(params)
+        step_idx, history = 0, []
+        for r in range(pcfg.rounds):
+            params, opt_state, step_idx, losses = self.run_round(
+                params, opt_state, step_idx, self.perms(loop_gen))
+            if eval_every_round:
+                ev = self.evaluate(params)
+                ev["round"] = r
+                ev["round_losses"] = losses.cpu().numpy()
+                ev["loss"] = float(ev["round_losses"][-1])
+                history.append(ev)
+        final = self.evaluate(params)
+        return {"history": history, "final": final,
+                "params": tree_map(lambda p: p.detach().clone(), params)}

@@ -1,0 +1,142 @@
+"""Shared pieces of the port's tests (``tests/test_torch_*.py``): the
+reference import and the runs that feed both packages the same inputs.
+
+The JAX package's protocol stack imports ``jax.core.Primitive``, which
+jax 0.9 moved to ``jax.extend.core``.  ``reference()`` sets that name,
+imports the reference, and on exit removes both the name and every
+``repro`` module it imported, so the modules that other test files see
+are exactly those they would have seen without it.  Test files use it
+from a module-scoped fixture, never at import time: the test workers
+import every file, and a shim applied then would change how later
+files are collected.
+"""
+from __future__ import annotations
+
+import contextlib
+import importlib
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+_REFERENCE_MODULES = {
+    "protocol": "repro.core.protocol",
+    "exchange": "repro.core.exchange",
+    "partition": "repro.core.partition",
+    "data": "repro.data.registry",
+    "synthetic": "repro.data.synthetic",
+    "metrics": "repro.metrics.classification",
+    "kernels": "repro.kernels.vfl_matmul",
+    "optim": "repro.optim.optimizers",
+    "mlp": "repro.models.mlp_model",
+    "configs": "repro.configs",
+}
+
+
+def _forget(before):
+    for name in sorted(set(sys.modules) - before, reverse=True):
+        if name != "repro" and not name.startswith("repro."):
+            continue
+        mod = sys.modules.pop(name)
+        parent, _, child = name.rpartition(".")
+        if getattr(sys.modules.get(parent), child, None) is mod:
+            delattr(sys.modules[parent], child)
+
+
+@contextlib.contextmanager
+def reference():
+    """The JAX package's modules (a namespace) under the jax 0.9 shim,
+    with torch on one thread for the small shapes these tests use."""
+    before = set(sys.modules)
+    threads = torch.get_num_threads()
+    with pytest.MonkeyPatch.context() as mp:
+        import jax
+        import jax.extend
+        mp.setattr(jax.core, "Primitive", jax.extend.core.Primitive,
+                   raising=False)
+        torch.set_num_threads(1)
+        try:
+            ns = {k: importlib.import_module(v)
+                  for k, v in _REFERENCE_MODULES.items()}
+            yield types.SimpleNamespace(jax=jax, jnp=jax.numpy, **ns)
+        finally:
+            torch.set_num_threads(threads)
+            _forget(before)
+
+
+def to_np(tree):
+    """A JAX tree as numpy (copies, so donated buffers cannot alias)."""
+    import jax
+    return jax.tree.map(lambda a: np.array(a), tree)
+
+
+def reference_run(ref, **kw):
+    """Train the reference ``DeVertiFL`` and return what the port needs
+    to replay it: the initial weights, every round's batch-index matrix,
+    the per-step losses, the final weights and test predictions."""
+    jax = ref.jax
+    fed = ref.protocol.DeVertiFL(ref.protocol.ProtocolConfig(**kw))
+    init_key, loop_key = ref.protocol.train_keys(
+        jax.random.PRNGKey(fed.pcfg.seed))
+    init = to_np(fed.init_params(init_key))
+    idx = [np.asarray(fed._perms(jax.random.fold_in(loop_key, r)))
+           for r in range(fed.pcfg.rounds)]
+    out = fed.train()
+    params = out["params"]
+    return types.SimpleNamespace(
+        fed=fed, init=init, idx=idx,
+        losses=[np.asarray(h["round_losses"]) for h in out["history"]],
+        params=to_np(params), final=out["final"],
+        preds=np.asarray(fed.predict(params, fed.xte)))
+
+
+def port_run(init, idx, device="cpu", **kw):
+    """Replay rounds in the port from given initial weights and batch
+    indices; returns (federation, per-round losses, final params)."""
+    from repro_torch.core.protocol import DeVertiFL, ProtocolConfig
+    from repro_torch.interop import params_from_numpy
+    fed = DeVertiFL(ProtocolConfig(**kw), device=device)
+    params = params_from_numpy(init, device)
+    opt_state = fed.opt.init(params)
+    step, losses = 0, []
+    for round_idx in idx:
+        params, opt_state, step, round_losses = fed.run_round(
+            params, opt_state, step, round_idx)
+        losses.append(round_losses.cpu().numpy())
+    return fed, losses, params
+
+
+# per-step losses of the port against the reference, from the same
+# weights and batches: float32 in another summation order, compounded
+# over two rounds of Adam (measured on the CPU: at most 2.7e-7)
+LOSS_RTOL = 2e-6
+
+
+def assert_replays(ref_run, fed, losses, params, min_agree=0.995,
+                   f1_tol=0.002):
+    """The port's replay of a reference run agrees with it: every
+    per-step loss, the test predictions and the final F1."""
+    for ours, theirs in zip(losses, ref_run.losses, strict=True):
+        np.testing.assert_allclose(ours, theirs, rtol=LOSS_RTOL, atol=0)
+    n = fed.pcfg.n_clients
+    preds = fed.predict(params, fed.xte).cpu().numpy()[:n]
+    agree = float((preds == ref_run.preds[:n]).mean())
+    assert agree >= min_agree, agree
+    f1 = fed.evaluate(params)["f1"]
+    assert abs(f1 - ref_run.final["f1"]) <= f1_tol, (f1, ref_run.final)
+    return agree, f1
+
+
+def test_reference_leaves_modules_as_it_found_them():
+    import jax
+    before = set(sys.modules)
+    had_primitive = "Primitive" in vars(jax.core)
+    with reference() as ref:
+        assert ref.protocol.DeVertiFL is not None
+        assert "repro.core.protocol" in sys.modules
+    assert ("Primitive" in vars(jax.core)) == had_primitive
+    added = {m for m in set(sys.modules) - before
+             if m == "repro" or m.startswith("repro.")}
+    assert not added, sorted(added)
