@@ -12,12 +12,33 @@ Phases, each printing one JSON line:
               the shapes the training path gives it (forward, dx, dW,
               gate 0 and 1) and times kernel, plain version, bound and
               one library call on the same inputs
-  4. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
+  4. attn_kernel
+              holds flash_attention against its plain version at the
+              serving path's shapes (qwen2-7b prefill at S = 128, 1024,
+              1536; decode at B = 8 over 2048 ring slots) and at the
+              Pallas options the path does not use (window, softcap,
+              hd 64 and 256, float32, tails), element by element
+              against the plain float32 result; three planted faults
+              (window and causal mask off by one, a ring tile dropped)
+              must fail that check; and times kernel, plain version,
+              bound and scaled_dot_product_attention
+  5. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
               5 clients, 70,000 samples, 2 rounds) through the kernel
               lane with every launch count set to 0 just before and
               read just after; then reruns round 1 from the same
               weights and batches on the kernel lane (bitwise) and the
               slice lane (allclose)
+  6. profile  where a training step's time goes (torch.profiler)
+  7. serve    serves qwen2-7b at full width and depth (28 layers,
+              random bf16 weights drawn on the card) through
+              ServingEngine: 12 greedy requests of 128-1536 prompt
+              tokens and 32 new tokens on 8 slots, with the
+              flash_attention count set to 0 just before and read just
+              after; a rerun gives bitwise equal tokens, and the first
+              prompt's logits agree with the plain attention's (a
+              model built with ``attend=flash_attention_ref``) while a
+              planted fault's do not; then one decode step and one
+              prefill under torch.profiler
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
@@ -36,10 +57,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and
-# float32 outside the tensor cores, the type these kernels compute in
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth,
+# float32 outside the tensor cores (vfl_matmul's type) and dense bf16 in
+# the tensor cores (the serving path's type)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # kernel vs plain version: float32 with a different summation order,
 # the tolerance tests/test_kernels.py uses for float32
@@ -48,6 +71,30 @@ KERNEL_TOL = 2e-5
 # float32 in another summation order in layer 0 only (9.1e-7 measured
 # on an NVIDIA H100 80GB HBM3, power limit 700 W)
 LANE_RTOL = 1e-4
+# flash_attention vs its plain version, element by element against the
+# plain version's float32 result on the same inputs (bf16 inputs upcast
+# exactly): |kernel - plain| <= ATTN_ATOL + ATTN_RTOL * |plain|.  The
+# kernel sums in float32 in another order (at most 7.2e-7 on outputs up
+# to 3, measured on an NVIDIA H100 80GB HBM3, power limit 700 W): 1e-5
+# absolute and relative.  A bfloat16 output is its float32 result
+# rounded once, by at most half an ulp: 2^-8 of |plain| more.
+ATTN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5 + 2.0 ** -8}
+ATTN_ATOL = 1e-5
+# SDPA, the timed yardstick, computes the same function to bf16's
+# precision (it rounds the probabilities to bf16): tests/test_kernels.py's
+# bf16 rule, 2e-2 * max(1, |plain|max)
+LIBRARY_TOL = 2e-2
+# qwen2-7b prefill logits through the kernel vs through the plain
+# attention, |diff| over |plain| (L2 over the vocabulary): both round
+# every layer's activations to bfloat16, so a float32 sum taken in
+# another order flips some roundings by one bf16 ulp, and the flips
+# compound through 28 residual layers: 0.0167 for the 1,326-token first
+# prompt.  A planted fault, the last row missing its first 32-key tile
+# in every layer, reads 0.203; missing its first key, 0.0290 (the
+# attention check catches that one).  Both measured on an NVIDIA H100
+# 80GB HBM3, power limit 700 W; the limit sits 3x above the first and
+# 4x under the planted tile.
+SERVE_LOGIT_RTOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -152,7 +199,8 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": r["seconds"],
                              "cached": r["seconds"] == 0.0,
-                             "ptxas": [ln.strip() for ln in r["log"].splitlines()
+                             "ptxas": [ln.strip()
+                                       for ln in r["log"].splitlines()
                                        if "registers" in ln or "spill" in ln]}
                       for name, r in built.items()}})
 
@@ -288,6 +336,197 @@ def phase_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+def _ring_positions(B, size, last):
+    """Ring-buffer key positions after decoding up to ``last[b]``
+    (inclusive), as the serving cache holds them: slot s keeps the
+    newest position p <= last[b] with p % size == s, -1 if none."""
+    kpos = torch.full((B, size), -1, dtype=torch.int32)
+    for b, n in enumerate(last.tolist()):
+        p = torch.arange(max(0, n + 1 - size), n + 1, dtype=torch.int32)
+        kpos[b, (p % size).long()] = p
+    return kpos.cuda()
+
+
+def _attn_case(gen, B, H, KV, Sq, Skv, hd, dtype, cache_layout=False):
+    """q, k, v on the card; ``cache_layout`` gives k, v as the serving
+    cache holds them ([B, Skv, KV, hd], read as transposed views)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+    if cache_layout:
+        return (rand(B, Sq, H, hd).transpose(1, 2),
+                rand(B, Skv, KV, hd).transpose(1, 2),
+                rand(B, Skv, KV, hd).transpose(1, 2))
+    return rand(B, H, Sq, hd), rand(B, KV, Skv, hd), rand(B, KV, Skv, hd)
+
+
+def _attn_work(q, k, causal, window, q_pos, k_pos):
+    """(flops, bytes) this call's data needs: 4 * hd flops per visible
+    (query, key) pair; q, o and the positions once, and k, v once for
+    the slots that hold a key (position >= 0)."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    mask = attention_mask(Sq, Skv, q_pos, k_pos, causal, window, q.device)
+    pairs = int(mask.sum()) * (B // mask.shape[0])
+    slots = B * Skv if k_pos is None else \
+        int((k_pos >= 0).sum()) * (B if k_pos.dim() == 1 else 1)
+    size = q.element_size()
+    nbytes = 2 * q.numel() * size + 2 * slots * KV * hd * size + sum(
+        4 * p.numel() for p in (q_pos, k_pos) if p is not None)
+    return 4 * H * hd * pairs, nbytes
+
+
+def attn_excess(out, ref) -> float:
+    """The largest |out - ref| over its limit, ATTN_ATOL + ATTN_RTOL *
+    |ref| with ref the plain float32 result: 1 or less passes."""
+    limit = ATTN_ATOL + ATTN_RTOL[out.dtype] * ref.abs()
+    return float(((out.float() - ref).abs() / limit).max())
+
+
+def _planted_faults(kept) -> dict:
+    """The check must reject the kernel run with its mask off by one or
+    a tile short: each planted fault is the kernel on a case's inputs
+    with one option changed, held to the case's plain result."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v, opts, _ = kept["prefill S=1024"]
+    ahead = torch.arange(1, q.shape[2] + 1, dtype=torch.int32,
+                         device=q.device)
+    ring = kept["decode B=8 over 2048 ring slots"][3]["k_pos"].clone()
+    ring[:, 32:64] = -1                 # live in every row (positions >= 128)
+    faults = {"window 257 for 256": ("window 256", {"window": 257}),
+              "causal: each row sees the next key":
+                  ("prefill S=1024", {"q_pos": ahead}),
+              "decode: one 32-key tile of the ring dropped":
+                  ("decode B=8 over 2048 ring slots", {"k_pos": ring})}
+    readings = {}
+    for fault, (case, change) in faults.items():
+        q, k, v, opts, ref = kept[case]
+        with torch.no_grad():
+            out = flash_attention(q, k, v, **{**opts, **change})
+        readings[fault] = attn_excess(out, ref)
+        check(readings[fault] > 1.0, f"planted fault '{fault}' passed the "
+              f"flash_attention check ({readings[fault]} x its limit)")
+    return readings
+
+
+def phase_attn_kernel() -> dict:
+    """flash_attention against its plain version; returns the kernel's
+    record for the kernels line (all but ``launches``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref)
+    gen = torch.Generator().manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B_dec, slots = 8, 2048
+    last = torch.randint(128, 1600, (B_dec,), generator=gen)
+    ring = _ring_positions(B_dec, slots, last)
+    qpos_dec = last.to(torch.int32)[:, None].cuda()
+    # name, (B, H, KV, Sq, Skv, hd, dtype, cache layout), options,
+    # on the serving path
+    cases = [
+        ("prefill S=128", (1, 28, 4, 128, 128, 128, bf16, True), {}, True),
+        ("prefill S=1024", (1, 28, 4, 1024, 1024, 128, bf16, True), {},
+         True),
+        ("prefill S=1536", (1, 28, 4, 1536, 1536, 128, bf16, True), {},
+         True),
+        ("decode B=8 over 2048 ring slots",
+         (B_dec, 28, 4, 1, slots, 128, bf16, True),
+         {"q_pos": qpos_dec, "k_pos": ring}, True),
+        ("decode float32", (B_dec, 28, 4, 1, slots, 128, f32, True),
+         {"q_pos": qpos_dec, "k_pos": ring}, False),
+        ("window 256", (1, 28, 4, 1024, 1024, 128, bf16, False),
+         {"window": 256}, False),
+        ("softcap 50", (2, 8, 2, 512, 512, 128, bf16, False),
+         {"softcap": 50.0}, False),
+        ("hd 64 float32, tails", (2, 4, 2, 300, 300, 64, f32, False),
+         {"window": 100}, False),
+        ("hd 256 (gemma2), window and softcap",
+         (1, 8, 4, 700, 700, 256, bf16, False),
+         {"window": 256, "softcap": 50.0}, False),
+        ("non-causal, Q and K tails", (2, 6, 3, 100, 77, 128, f32, False),
+         {"causal": False}, False),
+    ]
+    rows, err_max, timings, kept = [], 0.0, {}, {}
+    for name, (B, H, KV, Sq, Skv, hd, dtype, cache), opts, on_path in cases:
+        q, k, v = _attn_case(gen, B, H, KV, Sq, Skv, hd, dtype, cache)
+        with torch.no_grad():
+            out = flash_attention(q, k, v, **opts)
+            ref = flash_attention_ref(q.float(), k.float(), v.float(),
+                                      **opts)
+            torch.cuda.synchronize()
+            err = max_err(out.float(), ref)
+            excess = attn_excess(out, ref)
+            check(excess <= 1.0, f"flash_attention {name}: |kernel - plain| "
+                  f"is {excess} x its limit (max {err})")
+            again = flash_attention(q, k, v, **opts)
+            check(torch.equal(out, again),
+                  f"flash_attention {name}: a rerun is not bitwise equal")
+        err_max = max(err_max, err)
+        kept[name] = (q, k, v, opts, ref)
+        rows.append({"case": name, "B": B, "H": H, "KV": KV, "Sq": Sq,
+                     "Skv": Skv, "hd": hd, "dtype": str(dtype)[6:],
+                     "opts": sorted(opts), "max_abs_err": err,
+                     "err_over_limit": excess})
+        if not on_path:
+            continue
+        # the library yardstick: PyTorch's fused attention, same inputs
+        causal = opts.get("causal", True)
+        if "k_pos" in opts:
+            mask = (opts["k_pos"][:, None, None, :] >= 0) & \
+                (opts["k_pos"][:, None, None, :] <= opts["q_pos"][:, None,
+                                                                  :, None])
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True)
+        with torch.no_grad():
+            lib_err = max_err(lib().float(), ref)
+            lib_tol = LIBRARY_TOL * max(1.0, float(ref.abs().max()))
+            check(lib_err <= lib_tol, f"SDPA yardstick {name}: max |SDPA - "
+                  f"plain| = {lib_err} > {lib_tol}")
+            fns = {"": lambda: flash_attention(q, k, v, **opts),
+                   "plain_": lambda: flash_attention_ref(q, k, v, **opts),
+                   "library_": lib}
+            calls = 100 if Sq * Skv <= 1 << 20 or Sq == 1 else 20
+            times = {}
+            for key, fn in fns.items():
+                times[key + "ms"] = device_ms(fn, calls=calls, replays=3)
+                times[key + "eager_ms"] = eager_ms(fn, calls)
+        flops, nbytes = _attn_work(q, k, causal, None, opts.get("q_pos"),
+                                   opts.get("k_pos"))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        timings[name] = {**times, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations", "flops": flops, "bytes": nbytes,
+                         "tflops_per_s": flops / times["ms"] / 1e9}
+    emit({"phase": "attn_kernel", "kernel": "flash_attention",
+          "limit": f"{ATTN_ATOL} + rtol * |plain|, element by element",
+          "rtol": {"float32": ATTN_RTOL[f32], "bfloat16": ATTN_RTOL[bf16]},
+          "cases": rows, "planted_faults": _planted_faults(kept)})
+    emit({"phase": "attn_kernel_times", "kernel": "flash_attention",
+          "timings": timings})
+    main = timings["prefill S=1024"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:88",
+            "max_abs_err": err_max,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "eager_ms": main["eager_ms"],
+            "at": {"shape": "qwen2-7b prefill, B=1, H=28, KV=4, hd=128, "
+                            "S=1024, causal, bf16",
+                   "ms": "device time per call, CUDA graph",
+                   "library": "torch.nn.functional."
+                              "scaled_dot_product_attention"},
+            "decode": timings["decode B=8 over 2048 ring slots"],
+            "timings": timings}
+
+
+# ---------------------------------------------------------------------------
 def _round_one(pcfg, lane):
     """Round 1 of ``pcfg``'s training on ``lane`` from the weights and
     batches ``DeVertiFL.train`` draws first."""
@@ -377,6 +616,14 @@ def phase_profile(pcfg) -> None:
         fed.run_round(params, opt_state, 0, idx)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = pcfg.epochs * fed.n_batches
+    emit({"phase": "profile", "n_samples": pcfg.n_samples, "steps": steps,
+          **_profile_rows(prof, wall_ms, steps)})
+
+
+def _profile_rows(prof, wall_ms, steps) -> dict:
+    """Device time by kernel, and the device's busy share of the wall
+    time, from a torch.profiler run over ``steps`` steps."""
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
@@ -385,27 +632,226 @@ def phase_profile(pcfg) -> None:
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
-    steps = pcfg.epochs * fed.n_batches
-    emit({"phase": "profile", "n_samples": pcfg.n_samples, "steps": steps,
-          "wall_ms_per_step": wall_ms / steps,
-          "device_ms_per_step": device_ms / steps if rows else None,
-          "device_busy_share": device_ms / wall_ms if rows else None,
-          "kernels_per_step": sum(r[2] for r in rows) / steps,
-          "top_device_kernels": [
-              {"kernel": k[:80], "ms_per_step": us / 1e3 / steps,
-               "calls_per_step": n / steps} for us, k, n in rows[:10]]})
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps if rows else None,
+            "device_busy_share": device_ms / wall_ms if rows else None,
+            "kernels_per_step": sum(r[2] for r in rows) / steps,
+            "top_device_kernels": [
+                {"kernel": k[:80], "ms_per_step": us / 1e3 / steps,
+                 "calls_per_step": n / steps} for us, k, n in rows[:10]]}
+
+
+# ---------------------------------------------------------------------------
+def _serve(model, params, requests, max_batch, cache_len):
+    """Drain ``requests`` through a fresh ServingEngine, driving the
+    admit / step loop of ``ServingEngine.run`` here so that each call is
+    timed on the host (both end there, reading the sampled tokens).  A
+    request's first token counts at the end of the admit call that
+    prefilled it: the engine hands out tokens between its calls."""
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(model, params, max_batch=max_batch,
+                           cache_len=cache_len)
+    for r in requests:
+        engine.submit(r)
+    admit_s, step_s, active, first = [], [], [], []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    while engine.queue or any(s.active for s in engine.slots):
+        before = engine.prefills
+        t0 = time.perf_counter()
+        engine._admit()
+        t1 = time.perf_counter()
+        admit_s.append(t1 - t0)
+        first += [t1 - start] * (engine.prefills - before)
+        if any(s.active for s in engine.slots):
+            active.append(sum(s.active for s in engine.slots))
+            t0 = time.perf_counter()
+            engine.step()
+            step_s.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - start
+    return engine, dict(engine.done), {
+        "admit_s": admit_s, "step_s": step_s, "active": active,
+        "first_token_s": first, "wall_s": wall}
+
+
+def _logit_readings(cfg, params, prompt, cache_len, device) -> dict:
+    """The prompt's last-token logits through the kernel against the
+    plain version's, |diff| over |plain| (L2 over the vocabulary); the
+    same reading for two planted faults: the last row missing its first
+    key, and its first 32-key tile, in every layer (the kernel with a
+    window of the prompt's length less 1 or 32)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref)
+    from repro_torch.models import build_model
+    n = len(prompt)
+    batch = {"tokens": torch.tensor([prompt], device=device)}
+
+    def cut(keys):
+        def attend(q, k, v, **kw):
+            return flash_attention(q, k, v, **{**kw, "window": n - keys})
+        return attend
+
+    def logits(attend):
+        return build_model(cfg, attend).prefill(
+            params, batch, cache_len=cache_len)[0].flatten()
+
+    plain = logits(flash_attention_ref)
+
+    def rel(x):
+        return float((x - plain).norm() / plain.norm())
+    kernel = logits(None)
+    return {"prompt_tokens": n, "rel_l2": rel(kernel),
+            "max_abs": max_err(kernel, plain),
+            "max_abs_plain": float(plain.abs().max()),
+            "cosine": float(torch.nn.functional.cosine_similarity(
+                kernel, plain, dim=0)),
+            "same_top1": int(kernel.argmax()) == int(plain.argmax()),
+            "fault_one_key_rel_l2": rel(logits(cut(1))),
+            "fault_one_tile_rel_l2": rel(logits(cut(32)))}
+
+
+def phase_serve(attn_row) -> None:
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.protocol import resolve_device
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen2-7b")
+    model = build_model(cfg)
+    device = resolve_device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    # 152064 is a multiple of 128: the padded vocab is the config's
+    check(n_params == cfg.param_counts()["total"] +
+          _norm_and_bias_params(cfg), f"qwen2-7b has {n_params} parameters")
+    init_peak = torch.cuda.max_memory_allocated()
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(128, 1537, 12)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    n_new, max_batch, cache_len = 32, 8, 2048
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=n_new)
+                for i, p in enumerate(prompts)]
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    vfl_matmul_clients.launches = 0
+    engine, out, t = _serve(model, params, requests(), max_batch, cache_len)
+    launches = flash_attention.launches
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(sorted(out) == list(range(len(prompts))), f"done: {sorted(out)}")
+    check(all(len(v) == n_new and all(0 <= x < cfg.vocab_size for x in v)
+              for v in out.values()), "a request's tokens are not "
+          f"{n_new} in-vocab ids")
+    expected = cfg.num_layers * (engine.prefills + engine.decode_steps)
+    check(launches == expected,
+          f"flash_attention launched {launches} times, expected {expected} "
+          f"= {cfg.num_layers} x ({engine.prefills} prefills + "
+          f"{engine.decode_steps} decode steps)")
+    check(vfl_matmul_clients.launches == 0, "serving launched vfl_matmul")
+    steps, prefills = engine.decode_steps, engine.prefills
+    del engine
+
+    _, again, _ = _serve(model, params, requests(), max_batch, cache_len)
+    check(again == out, "serving rerun: tokens are not bitwise equal")
+
+    # the first prompt's logits, kernel vs plain attention, and the
+    # planted faults the comparison must see
+    logit = _logit_readings(cfg, params, prompts[0], cache_len, device)
+    emit({"phase": "serve_logits", "rtol": SERVE_LOGIT_RTOL, **logit})
+    check(logit["rel_l2"] <= SERVE_LOGIT_RTOL,
+          f"prefill logits, kernel vs plain attention: |diff| / |plain| = "
+          f"{logit['rel_l2']} > {SERVE_LOGIT_RTOL}")
+    check(logit["fault_one_tile_rel_l2"] > SERVE_LOGIT_RTOL,
+          f"planted fault (one 32-key tile missed) passed the logits check: "
+          f"{logit['fault_one_tile_rel_l2']} <= {SERVE_LOGIT_RTOL}")
+
+    prompt_tokens = int(lengths.sum())
+    decode_tokens = sum(t["active"])
+    step_ms = [x * 1e3 for x in t["step_s"]]
+    attn_row["launches"] = launches
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                            cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": n_params, "weight_gb": weight_bytes / 1e9,
+          "setup_s": setup_s, "init_peak_gb": init_peak / 1e9,
+          "serve_peak_gb": serve_peak / 1e9,
+          "max_batch": max_batch, "cache_len": cache_len,
+          "requests": len(prompts), "prompt_lengths": lengths.tolist(),
+          "new_tokens": n_new, "prefills": prefills, "decode_steps": steps,
+          "flash_attention_launches": launches,
+          "wall_s": t["wall_s"],
+          "prefill_tokens_per_s": prompt_tokens / sum(t["admit_s"]),
+          "decode_tokens_per_s": decode_tokens / sum(t["step_s"]),
+          "ttft_s": {"first_request": t["first_token_s"][0],
+                     "mean": sum(t["first_token_s"]) / len(prompts),
+                     "max": max(t["first_token_s"])},
+          "decode_step_ms": {"mean": sum(step_ms) / len(step_ms),
+                             "median": sorted(step_ms)[len(step_ms) // 2],
+                             "min": min(step_ms), "max": max(step_ms)},
+          "rerun_bitwise": True,
+          "logits_kernel_vs_plain_rel_l2": logit["rel_l2"]})
+
+    # where an engine decode step (8 slots after 8 prefills) and a
+    # prefill spend their time
+    engine = ServingEngine(model, params, max_batch=max_batch,
+                           cache_len=cache_len)
+    for r in requests()[:max_batch]:
+        engine.submit(r)
+    engine._admit()
+    engine.step()
+    batch = {"tokens": torch.tensor([prompts[1][:1024]], device=device)}
+    model.prefill(params, batch, cache_len=cache_len)
+    torch.cuda.synchronize()
+    profiles = {}
+    for name, fn in (("decode step, B=8", engine.step),
+                     ("prefill, S=1024", lambda: model.prefill(
+                         params, batch, cache_len=cache_len))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profiles[name] = _profile_rows(prof, wall_ms, 1)
+    emit({"phase": "serve_profile", **profiles})
+
+
+def _norm_and_bias_params(cfg):
+    """What the weight tree holds beyond ``param_counts`` (which counts
+    matrices only): the norm scales and the q/k/v biases."""
+    per_layer = 2 * cfg.d_model + (cfg.num_heads + 2 * cfg.num_kv_heads) * \
+        cfg.head_dim * cfg.qkv_bias
+    return cfg.num_layers * per_layer + cfg.d_model
 
 
 def main() -> None:
     info = phase_device()
     phase_build()
     kernel_row = phase_kernel()
+    attn_row = phase_attn_kernel()
     from repro_torch.core.protocol import ProtocolConfig
     pcfg = ProtocolConfig(dataset="mnist", n_clients=5, n_samples=70000,
                           rounds=2, epochs=1, batch_size=64)
     phase_train(kernel_row, pcfg)
     phase_profile(pcfg.replace(n_samples=4000))
-    emit({"kernels": [kernel_row]})
+    phase_serve(attn_row)
+    emit({"kernels": [kernel_row, attn_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
 

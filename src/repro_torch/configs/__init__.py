@@ -1,3 +1,31 @@
-from repro_torch.configs.paper_mlp import (  # noqa: F401
-    MLPConfig, get_config,
+"""Architecture configs of the port.  Each architecture lives in its own
+module and registers itself on import; ``load_all()`` imports every
+module once.  The port of ``repro.configs``: only the dense family is
+listed (qwen2, qwen1.5, gemma2); the others raise NotImplementedError
+from ``get_config`` (ROADMAP.md, Queue 1 item 10).  The paper's MLPs
+keep their own ``MLPConfig`` registry in ``paper_mlp``."""
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
+    InputShape,
+    ModelConfig,
+    VFLConfig,
+    get_config,
+    list_configs,
+    register,
 )
+from repro_torch.configs.paper_mlp import MLPConfig  # noqa: F401
+
+_MODULES = ["qwen2_7b", "qwen1_5_0_5b", "qwen1_5_4b", "gemma2_2b"]
+
+_loaded = False
+
+
+def load_all():
+    global _loaded
+    if _loaded:
+        return
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+    _loaded = True

@@ -1,9 +1,14 @@
-"""Moving parameter trees between the JAX package and the port.
+"""Moving parameter trees and decode states between the JAX package and
+the port.
 
-Both keep every client's parameters stacked on a leading axis in the
-same tree, ``{"layer_i": {"kernel": [n, in, out], "bias": [n, out]}}``,
-so crossing over is a copy with no transposes.  Arrays cross as numpy;
-nothing here imports JAX.
+Both keep the same trees: the federation's clients stacked on a leading
+axis (``{"layer_i": {"kernel": [n, in, out], "bias": [n, out]}}``), and
+the LM's ``vfl_embedding`` / ``lm_head`` / ``final_norm`` /
+``stack.scanned.sub_j...`` with a leading [n_groups] axis under
+``scanned``, so crossing over is a copy with no transposes.  Arrays
+cross as numpy (bfloat16 as ``ml_dtypes``' bfloat16, which is what
+``np.asarray`` gives for a JAX bfloat16 array); nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -13,13 +18,32 @@ import torch
 from repro_torch.tree import tree_map
 
 
-def params_from_numpy(tree, device) -> dict:
+def _tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree, device, dtype=torch.float32) -> dict:
     """A tree of arrays (numpy, or anything ``np.asarray`` takes) as
-    float32 tensors on ``device``."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
-                                           device=device), tree)
+    tensors on ``device``: in ``dtype``, or each in its own dtype when
+    ``dtype`` is None (an LM's bfloat16 weights, a cache's int32
+    positions)."""
+    return tree_map(lambda a: _tensor(a, device, dtype), tree)
 
 
 def params_to_numpy(tree) -> dict:
     """A tree of tensors as numpy arrays (copied to the host)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def state_to_numpy(state) -> dict:
+    """The port's decode state (``{"cache": ..., "position": [B]}``) as
+    numpy, bfloat16 leaves widened to float32 (numpy has no bfloat16 of
+    its own), for comparison with the reference's.  The other way is
+    ``params_from_numpy(state, device, dtype=None)``."""
+    return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16
+                               else t).detach().cpu().numpy(), state)

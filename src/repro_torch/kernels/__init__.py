@@ -1,6 +1,14 @@
 # Hand-written Hopper kernels, one package each, beside the JAX
 # package's Pallas kernels they replace:
-#   vfl_matmul  -- the all-clients first-layer matmul (CUDA C++, sm_90a)
+#   vfl_matmul       -- the all-clients first-layer matmul (CUDA C++, sm_90a)
+#   flash_attention  -- the LM's prefill and decode attention (CUDA C++,
+#                       sm_90a)
 # Each package: csrc/ (the CUDA source), ops.py (wrapper, launch count,
-# autograd.Function), ref.py (the plain PyTorch version).  build.py
-# compiles the sources with nvcc at first use.
+# and vfl_matmul's autograd.Function), ref.py (the plain PyTorch
+# version).  build.py compiles the sources with nvcc at first use.
+from repro_torch.kernels.vfl_matmul.ops import (  # noqa: F401
+    vfl_matmul, vfl_matmul_clients,
+)
+from repro_torch.kernels.vfl_matmul.ref import (  # noqa: F401
+    vfl_matmul_clients_ref, vfl_matmul_ref,
+)

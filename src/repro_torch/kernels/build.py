@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
 
 # kernel name -> source, relative to this package
-SOURCES = {"vfl_matmul": "vfl_matmul/csrc/vfl_matmul.cu"}
+SOURCES = {"vfl_matmul": "vfl_matmul/csrc/vfl_matmul.cu",
+           "flash_attention": "flash_attention/csrc/flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

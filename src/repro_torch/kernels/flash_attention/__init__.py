@@ -1,0 +1,6 @@
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    flash_attention_ref,
+)

@@ -1,0 +1,293 @@
+"""Decoder stacks assembled from a ModelConfig: the port of
+``repro.models.transformer`` for the attention mixer and the dense FFN
+(the dense family).  Mamba, RWKV, MoE and cross-attention kinds raise
+NotImplementedError (ROADMAP.md, Queue 1 item 10).
+
+Layer stacks keep the reference's (prefix, periodic-group) form and its
+parameter tree: the periodic part lives under ``"scanned"`` with a
+leading [n_groups] axis on every leaf, so weights cross between the
+packages with no reshapes.  Where the reference ``lax.scan``s over the
+groups, the port runs a Python loop over that axis.
+
+The De-VertiFL input block runs on one device here: ``embed_input`` is
+the plain lookup of the reference without a client mesh.  The
+multi-client ``exchange_features`` path (``shard_map`` over the
+embedding's client-sharded d_model) is not ported yet.
+
+``attend`` (block and stack functions) is the attention function,
+passed through to ``models.attention`` (None: ``flash_attention``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+
+def _unported(what):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (only the dense family: "
+        "attention mixers, dense FFNs); see ROADMAP.md, Queue 1 item 10")
+
+
+# ---------------------------------------------------------------------------
+# layer-kind schedule
+# ---------------------------------------------------------------------------
+def layer_kinds(cfg):
+    kinds = []
+    for l in range(cfg.num_layers):
+        if cfg.ssm_type == "rwkv6":
+            mixer = "rwkv"
+        elif cfg.ssm_type == "mamba" and (
+                cfg.attn_layer_period == 0
+                or l % cfg.attn_layer_period != cfg.attn_layer_offset):
+            mixer = "mamba"
+        else:
+            mixer = "attn"
+        window = A.layer_window_for(cfg, l) if mixer == "attn" else None
+        if mixer == "rwkv":
+            ffn = "rwkv_cm"
+        elif l == 0 and cfg.first_layer_dense_ff:
+            ffn = "dense0"
+        elif cfg.num_experts and (l % cfg.moe_every) == cfg.moe_offset:
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        kinds.append({
+            "mixer": mixer, "ffn": ffn, "window": window,
+            "cross": cfg.is_encoder_decoder, "causal": True,
+        })
+    return kinds
+
+
+def periodic_split(kinds):
+    """Return (prefix_len, period) decomposing kinds into an irregular
+    prefix followed by a periodic tail."""
+    n = len(kinds)
+    for prefix in (0, 1, 2):
+        rest = kinds[prefix:]
+        if not rest:
+            continue
+        for period in range(1, min(16, len(rest)) + 1):
+            if len(rest) % period:
+                continue
+            if all(rest[i] == rest[i % period] for i in range(len(rest))):
+                return prefix, period
+    return n, 1
+
+
+def _check_kind(kind):
+    if kind["mixer"] != "attn":
+        raise _unported(f"the {kind['mixer']!r} mixer")
+    if kind["ffn"] != "dense":
+        raise _unported(f"the {kind['ffn']!r} FFN")
+    if kind["cross"]:
+        raise _unported("cross attention (encoder-decoder)")
+
+
+# ---------------------------------------------------------------------------
+# single block
+# ---------------------------------------------------------------------------
+def block_init(generator, cfg, kind, dtype):
+    _check_kind(kind)
+    D, dev = cfg.d_model, generator.device
+    return {"pre_norm": L.norm_init(D, cfg.norm_type, dev),
+            "attn": A.attn_init(generator, cfg, dtype),
+            "ffn_norm": L.norm_init(D, cfg.norm_type, dev),
+            "ffn": L.mlp_init(generator, D, cfg.d_ff, cfg.act, dtype)}
+
+
+def block_apply(p, x, positions, cfg, kind, attend=None):
+    """Full-sequence block. Returns (x, aux_loss); aux is 0 without MoE."""
+    _check_kind(kind)
+    h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
+    x = x + A.attn_apply(p["attn"], h, positions, cfg,
+                         layer_window=kind["window"],
+                         causal=kind.get("causal", True), attend=attend)
+    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
+    x = x + L.mlp_apply(p["ffn"], h2, cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
+                  attend=None):
+    """Full-sequence forward that also emits the decode cache for this
+    block (forward-only: the inference-prefill path)."""
+    _check_kind(kind)
+    h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
+    y, (k, v) = A.attn_apply(p["attn"], h, positions, cfg,
+                             layer_window=kind["window"],
+                             causal=kind.get("causal", True),
+                             return_kv=True, attend=attend)
+    x = x + y
+    empty = A.init_cache(cfg, batch,
+                         min(cache_len, kind["window"])
+                         if kind["window"] else cache_len,
+                         kind["window"], dtype, x.device)
+    cache = {"attn": A.fill_cache_from_prefill(empty, k, v, positions,
+                                               batch)}
+    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
+    x = x + L.mlp_apply(p["ffn"], h2, cfg.act)
+    return x, cache
+
+
+def block_init_cache(cfg, kind, batch, seq_len, dtype, device=None):
+    _check_kind(kind)
+    return {"attn": A.init_cache(cfg, batch, seq_len, kind["window"], dtype,
+                                 device)}
+
+
+def block_decode(p, x, position, cfg, kind, cache, attend=None):
+    """One-token decode. Returns (x, cache), the cache written in
+    place."""
+    _check_kind(kind)
+    h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
+    new_cache = dict(cache)
+    y, new_cache["attn"] = A.attn_decode(
+        p["attn"], h, position, cache["attn"], cfg,
+        layer_window=kind["window"], attend=attend)
+    x = x + y
+    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
+    x = x + L.mlp_apply(p["ffn"], h2, cfg.act)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# stacks (prefix + periodic groups stacked on a leading axis)
+# ---------------------------------------------------------------------------
+class StackLayout:
+    def __init__(self, cfg, kinds):
+        self.kinds = kinds
+        if cfg.scan_layers:
+            self.prefix, self.period = periodic_split(kinds)
+        else:
+            self.prefix, self.period = len(kinds), 1
+        self.n_groups = (len(kinds) - self.prefix) // self.period \
+            if self.prefix < len(kinds) else 0
+        self.group_kinds = kinds[self.prefix:self.prefix + self.period] \
+            if self.n_groups else []
+
+
+def _stacked(make, n):
+    """``make(g)`` for g < n as one tree with a leading [n] axis on
+    every leaf, filled group by group so that only one group's tree is
+    ever held twice."""
+    first = make(0)
+    out = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
+    for g in range(n):
+        tree_map(lambda dst, src: dst[g].copy_(src), out,
+                 first if g == 0 else make(g))
+    return out
+
+
+def _group(tree, g):
+    """Group ``g`` of a stacked tree: views, so writes reach the stack."""
+    return tree_map(lambda t: t[g], tree)
+
+
+def stack_init(generator, cfg, kinds, dtype):
+    layout = StackLayout(cfg, kinds)
+    params = {}
+    for i in range(layout.prefix):
+        params[f"layer_{i}"] = block_init(generator, cfg, kinds[i], dtype)
+    if layout.n_groups:
+        params["scanned"] = _stacked(
+            lambda _: {f"sub_{j}": block_init(generator, cfg, kind, dtype)
+                       for j, kind in enumerate(layout.group_kinds)},
+            layout.n_groups)
+    return params
+
+
+def stack_apply(params, x, positions, cfg, kinds, attend=None):
+    layout = StackLayout(cfg, kinds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(layout.prefix):
+        x, a = block_apply(params[f"layer_{i}"], x, positions, cfg, kinds[i],
+                           attend)
+        aux = aux + a
+    for g in range(layout.n_groups):
+        gparams = _group(params["scanned"], g)
+        for j, kind in enumerate(layout.group_kinds):
+            x, a = block_apply(gparams[f"sub_{j}"], x, positions, cfg, kind,
+                               attend)
+            aux = aux + a
+    return x, aux
+
+
+def stack_init_cache(cfg, kinds, batch, seq_len, dtype, device=None):
+    layout = StackLayout(cfg, kinds)
+    cache = {}
+    for i in range(layout.prefix):
+        cache[f"layer_{i}"] = block_init_cache(cfg, kinds[i], batch, seq_len,
+                                               dtype, device)
+    if layout.n_groups:
+        cache["scanned"] = _stacked(
+            lambda _: {f"sub_{j}": block_init_cache(cfg, kind, batch,
+                                                    seq_len, dtype, device)
+                       for j, kind in enumerate(layout.group_kinds)},
+            layout.n_groups)
+    return cache
+
+
+def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
+                  dtype, attend=None):
+    layout = StackLayout(cfg, kinds)
+    cache = {}
+    for i in range(layout.prefix):
+        x, cache[f"layer_{i}"] = block_prefill(
+            params[f"layer_{i}"], x, positions, cfg, kinds[i], batch,
+            cache_len, dtype, attend)
+    groups = []
+    for g in range(layout.n_groups):
+        gparams = _group(params["scanned"], g)
+        newc = {}
+        for j, kind in enumerate(layout.group_kinds):
+            x, newc[f"sub_{j}"] = block_prefill(
+                gparams[f"sub_{j}"], x, positions, cfg, kind, batch,
+                cache_len, dtype, attend)
+        groups.append(newc)
+    if groups:
+        cache["scanned"] = tree_map(lambda *xs: torch.stack(xs), *groups)
+    return x, cache
+
+
+def stack_decode(params, x, position, cfg, kinds, cache, attend=None):
+    """One-token decode over the stack; every layer's cache is written
+    in place and ``cache`` is returned."""
+    layout = StackLayout(cfg, kinds)
+    for i in range(layout.prefix):
+        x, cache[f"layer_{i}"] = block_decode(
+            params[f"layer_{i}"], x, position, cfg, kinds[i],
+            cache[f"layer_{i}"], attend)
+    for g in range(layout.n_groups):
+        gparams = _group(params["scanned"], g)
+        gcache = _group(cache["scanned"], g)
+        for j, kind in enumerate(layout.group_kinds):
+            x, _ = block_decode(gparams[f"sub_{j}"], x, position, cfg, kind,
+                                gcache[f"sub_{j}"], attend)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# De-VertiFL input block and output head
+# ---------------------------------------------------------------------------
+def embed_input(params, ids, cfg):
+    """Token embedding on one device: the reference's ``embed_input``
+    without a client mesh (``transformer.py:406-410``).  Returns
+    [B, S, D], scaled by sqrt(d_model) where the config has a final
+    softcap (gemma2), in the table's dtype."""
+    emb_scale = cfg.d_model ** 0.5 if cfg.final_logit_softcap else 1.0
+    key = "vfl_embedding" if cfg.vfl.enabled else "embedding"
+    h = L.embed(params[key], ids)
+    return h * torch.tensor(emb_scale, dtype=h.dtype, device=h.device)
+
+
+def logits_from_hidden(params, h, cfg):
+    key = "vfl_embedding" if cfg.vfl.enabled else "embedding"
+    if cfg.tie_embeddings:
+        logits = h @ params[key]["table"].T
+    else:
+        logits = L.dense(params["lm_head"], h)
+    return L.softcap(logits.float(), cfg.final_logit_softcap)

@@ -1,0 +1,157 @@
+"""Continuous-batching serving engine: the port of
+``repro.serving.engine``.
+
+A fixed pool of `max_batch` decode slots advances one token per step
+for every active slot (one decode_step on the whole batch -- inactive
+slots run padding and are masked). New requests are admitted by running
+the model's *prefill* path at B=1 and splicing the resulting KV cache
+into the slot (`_insert_state`), so a long prompt never stalls the
+running batch for more than one prefill, and a finished slot is
+refilled immediately -- the standard continuous-batching discipline.
+
+Greedy or temperature sampling per request; temperature sampling draws
+from a ``torch.Generator`` seeded from ``seed`` (the reference's
+``jax.random`` key gives other draws from the same seed).  The engine
+counts its prefills and decode steps (``prefills``, ``decode_steps``).
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import torch
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    stop_token: Optional[int] = None
+
+
+@dataclass
+class _Slot:
+    active: bool = False
+    uid: int = -1
+    remaining: int = 0
+    stop_token: Optional[int] = None
+    temperature: float = 0.0
+    generated: list = field(default_factory=list)
+
+
+class ServingEngine:
+    def __init__(self, model, params, *, max_batch=8, cache_len=256,
+                 seed=0):
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.device = _params_device(params)     # serve where the weights are
+        self.state = model.init_decode_state(max_batch, cache_len,
+                                             device=self.device)
+        self.slots = [_Slot() for _ in range(max_batch)]
+        self.queue: deque = deque()
+        self.done: Dict[int, list] = {}
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self._last_tok = torch.zeros((max_batch, 1), dtype=torch.int32)
+        self.prefills = 0
+        self.decode_steps = 0
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        if not req.prompt or \
+                len(req.prompt) + req.max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"request {req.uid}: a prompt of {len(req.prompt)} tokens "
+                f"and {req.max_new_tokens} new tokens must be non-empty "
+                f"and fit the {self.cache_len}-slot cache")
+        self.queue.append(req)
+
+    def _insert_state(self, slot_idx, single_state, first_tok):
+        """Splice a B=1 prefill state into batch slot `slot_idx`.
+
+        Stacked-layer cache leaves are [n_groups, B, ...] -- the batch
+        axis is 1 under "scanned", 0 everywhere else (path-aware)."""
+        def ins(batched, single, in_scanned):
+            if isinstance(batched, dict):
+                for k in batched:
+                    ins(batched[k], single[k], in_scanned or k == "scanned")
+            elif in_scanned:
+                batched[:, slot_idx] = single[:, 0]
+            else:
+                batched[slot_idx] = single[0]
+        ins(self.state["cache"], single_state["cache"], False)
+        self.state["position"][slot_idx] = single_state["position"][0]
+        self._last_tok[slot_idx, 0] = first_tok
+
+    def _admit(self):
+        for i, slot in enumerate(self.slots):
+            if slot.active or not self.queue:
+                continue
+            req = self.queue.popleft()
+            batch = {"tokens": torch.tensor([req.prompt], dtype=torch.int64,
+                                            device=self.device)}
+            logits, st = self.model.prefill(self.params, batch,
+                                            cache_len=self.cache_len)
+            self.prefills += 1
+            first = self._sample(logits[:, -1, :], req.temperature)
+            self._insert_state(i, st, int(first[0]))
+            self.slots[i] = _Slot(active=True, uid=req.uid,
+                                  remaining=req.max_new_tokens - 1,
+                                  stop_token=req.stop_token,
+                                  temperature=req.temperature,
+                                  generated=[int(first[0])])
+
+    def _sample(self, logits, temperature):
+        """[n, V] logits -> [n] token ids on the host."""
+        if temperature <= 0:
+            return logits.argmax(-1).cpu()
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[:, 0] \
+            .cpu()
+
+    # ------------------------------------------------------------------
+    def step(self):
+        """One decode step for every active slot."""
+        toks = self._last_tok.to(self.device)
+        logits, self.state = self.model.decode_step(self.params, self.state,
+                                                    toks)
+        self.decode_steps += 1
+        lg = logits[:, -1, :]
+        greedy = self._sample(lg, 0.0)
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            nxt = int(greedy[i]) if slot.temperature <= 0 else \
+                int(self._sample(lg[i:i + 1], slot.temperature)[0])
+            slot.generated.append(nxt)
+            self._last_tok[i, 0] = nxt
+            slot.remaining -= 1
+            if slot.remaining <= 0 or nxt == slot.stop_token:
+                if nxt == slot.stop_token:
+                    slot.generated.pop()
+                self.done[slot.uid] = slot.generated
+                self.slots[i] = _Slot()
+
+    def run(self):
+        """Drain the queue; returns {uid: generated tokens}."""
+        while self.queue or any(s.active for s in self.slots):
+            self._admit()
+            if any(s.active for s in self.slots):
+                self.step()
+        return dict(self.done)
+
+    @property
+    def stats(self):
+        return {"active": sum(s.active for s in self.slots),
+                "queued": len(self.queue),
+                "done": len(self.done)}
+
+
+def _params_device(params):
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device

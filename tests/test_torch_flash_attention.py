@@ -1,0 +1,244 @@
+"""The port's flash_attention wrapper against the JAX package's kernel.
+
+On the CPU the wrapper runs the kernel's plain version, so these tests
+hold its masks, positions, GQA, softcap and strides to the reference:
+the Pallas kernel in interpret mode and its oracle
+``flash_attention_ref``, as tests/test_kernels.py runs them, and the
+reference model's ``_attend`` for the position tensors the decode path
+passes.  The kernel itself is held to the plain version on the card (the
+``cuda`` test below, and chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_ref)
+from test_torch_support import reference
+
+
+@pytest.fixture(scope="module")
+def ref():
+    with reference() as ns:
+        yield ns
+
+
+def allclose(a, b, tol):
+    """tests/test_kernels.py's rule: atol tol * max(1, |ref|max)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    scale = max(1.0, float(np.abs(b).max())) if b.size else 1.0
+    np.testing.assert_allclose(a, b, atol=tol * scale, rtol=tol)
+
+
+def kernel_close(out, ref):
+    """The kernel's output against the plain version's float32 result on
+    the same inputs, element by element (chip_smoke.py's rule): float32
+    in another order within 1e-5 absolute and relative, and a bfloat16
+    output rounded once, by at most half an ulp (2^-8 of |ref|) more."""
+    rtol = 1e-5 + (2.0 ** -8 if out.dtype == torch.bfloat16 else 0.0)
+    err = (out.float() - ref).abs()
+    assert bool((err <= 1e-5 + rtol * ref.abs()).all()), float(err.max())
+
+
+def close_rel(a, b, rtol=1e-5):
+    """Max |a - b| within rtol of max |b| (float32 in another order)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    err = float(np.abs(a - b).max())
+    assert err <= rtol * float(np.abs(b).max()), err
+
+
+def _qkv(seed, B, H, KV, Sq, Skv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, hd), np.float32),
+            rng.standard_normal((B, KV, Skv, hd), np.float32),
+            rng.standard_normal((B, KV, Skv, hd), np.float32))
+
+
+def _torch(a, dtype=torch.float32):
+    return torch.tensor(a).to(dtype)
+
+
+# tests/test_kernels.py:113-131
+KERNEL_CASES = [
+    (2, 4, 2, 256, 64, True, None, 0.0),
+    (1, 4, 4, 256, 64, True, 128, 0.0),
+    (1, 8, 2, 128, 64, True, None, 50.0),
+    (2, 2, 2, 256, 64, False, None, 0.0),
+    (1, 2, 1, 512, 128, True, 256, 30.0),
+]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,cap", KERNEL_CASES)
+def test_plain_version_matches_pallas_and_oracle(ref, B, H, KV, S, hd,
+                                                  causal, window, cap, bf16):
+    jnp = ref.jnp
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else \
+        (jnp.float32, torch.float32)
+    q, k, v = _qkv(0, B, H, KV, S, S, hd)
+    # both packages see the same (rounded) inputs
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    qt, kt, vt = (_torch(np.asarray(a.astype(jnp.float32)), tdt)
+                  for a in (qj, kj, vj))
+    ours = flash_attention(qt, kt, vt, causal=causal, window=window,
+                           softcap=cap)
+    assert ours.dtype == tdt and ours.shape == qt.shape
+    pallas = ref.flash.flash_attention(qj, kj, vj, causal=causal,
+                                       window=window, softcap=cap, bq=64,
+                                       bk=64)
+    oracle = ref.flash.flash_attention_ref(qj, kj, vj, causal=causal,
+                                           window=window, softcap=cap)
+    tol = 2e-2 if bf16 else 2e-5
+    ours = ours.float().numpy()
+    allclose(ours, np.asarray(pallas.astype(jnp.float32)), tol)
+    allclose(ours, np.asarray(oracle.astype(jnp.float32)), tol)
+
+
+def _ring(B, size, pos, rng):
+    """Per-row ring-buffer slot positions after decoding up to ``pos[b]``
+    (inclusive): slot s holds the newest position p <= pos[b] with
+    p % size == s, or -1 if none."""
+    kpos = np.full((B, size), -1, np.int32)
+    for b in range(B):
+        for p in range(int(pos[b]) + 1):
+            kpos[b, p % size] = p
+    return kpos
+
+
+# B, Q, H, KV, S, window, cap, per-row positions
+POSITION_CASES = [
+    (3, 1, 4, 2, 16, None, 0.0, True),      # decode, partly written cache
+    (3, 1, 4, 2, 8, 8, 0.0, True),          # decode, wrapped ring window
+    (2, 1, 8, 2, 32, None, 50.0, True),     # decode, softcap
+    (1, 24, 4, 2, 24, 16, 0.0, False),      # prefill, 1-D positions
+    (2, 5, 4, 4, 12, 4, 30.0, True),        # per-row query positions
+]
+
+
+@pytest.mark.parametrize("B,Q,H,KV,S,window,cap,per_row", POSITION_CASES)
+def test_positions_match_reference_attend(ref, B, Q, H, KV, S, window, cap,
+                                          per_row):
+    rng = np.random.default_rng(1)
+    hd = 64
+    q = rng.standard_normal((B, Q, H, hd), np.float32)
+    k = rng.standard_normal((B, S, KV, hd), np.float32)
+    v = rng.standard_normal((B, S, KV, hd), np.float32)
+    if per_row:
+        last = rng.integers(Q + 2, 3 * S, B)
+        qpos = (last[:, None] - np.arange(Q)[::-1]).astype(np.int32)
+        kpos = _ring(B, S, last, rng)
+    else:
+        qpos = kpos = np.arange(S, dtype=np.int32)
+    jnp = ref.jnp
+    theirs = ref.attention._attend(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(qpos),
+        jnp.asarray(kpos), causal=True, window=window, cap=cap,
+        scale=hd ** -0.5)
+    ours = flash_attention(
+        torch.tensor(q).transpose(1, 2), torch.tensor(k).transpose(1, 2),
+        torch.tensor(v).transpose(1, 2), causal=True, window=window,
+        softcap=cap, q_pos=torch.tensor(qpos), k_pos=torch.tensor(kpos))
+    close_rel(ours.transpose(1, 2).numpy(), np.asarray(theirs))
+
+
+def test_row_with_no_valid_key_is_zero(ref):
+    """The one documented difference (ref.py): the kernel's plain version
+    gives 0 on a row that sees no key, the reference model's ``_attend``
+    the mean of v.  No row on the serving path is fully masked."""
+    q, k, v = _qkv(2, 1, 2, 1, 2, 4, 64)
+    qpos = np.array([[-5, 3]], np.int32)          # row 0 sees nothing
+    kpos = np.array([[0, 1, 2, 3]], np.int32)
+    ours = flash_attention(_torch(q), _torch(k), _torch(v),
+                           q_pos=torch.tensor(qpos),
+                           k_pos=torch.tensor(kpos)).numpy()
+    assert not ours[:, :, 0].any()
+    jnp = ref.jnp
+    theirs = np.asarray(ref.attention._attend(
+        jnp.asarray(q.transpose(0, 2, 1, 3)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(qpos),
+        jnp.asarray(kpos), causal=True, window=None, cap=0.0,
+        scale=64 ** -0.5))
+    np.testing.assert_allclose(theirs[0, 0, 0], v[0, 0].mean(0), rtol=1e-5,
+                               atol=1e-6)
+    close_rel(ours[:, :, 1], theirs[:, 1])
+
+
+def test_default_positions_are_the_iota_mask():
+    q, k, v = (_torch(a) for a in _qkv(3, 2, 4, 2, 9, 9, 64))
+    iota = torch.arange(9, dtype=torch.int32)
+    for kw in ({}, {"window": 3}, {"causal": False}):
+        a = flash_attention(q, k, v, **kw)
+        b = flash_attention(q, k, v, q_pos=iota, k_pos=iota[None].expand(
+            2, 9).contiguous(), **kw)
+        assert torch.equal(a, b), kw
+
+
+def test_strided_views_equal_contiguous_inputs():
+    q, k, v = (_torch(a) for a in _qkv(4, 2, 4, 2, 7, 7, 64))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(flash_attention(*views, window=4),
+                       flash_attention(q, k, v, window=4))
+
+
+def test_refuses_what_the_kernel_does_not_take():
+    q, k, v = (_torch(a) for a in _qkv(5, 1, 4, 2, 4, 4, 64))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention(q, k, v, q_pos=torch.arange(4))
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)
+
+
+def test_cpu_path_counts_no_launches():
+    before = flash_attention.launches
+    flash_attention(*(_torch(a) for a in _qkv(6, 1, 2, 1, 3, 3, 64)))
+    assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_matches_plain_version_on_the_card(dtype):
+    """Runs only where there is a card (python3 chip_smoke.py covers the
+    same ground at the serving path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(7)
+    for B, H, KV, Sq, Skv, hd, causal, window, cap in [
+            *[(B, H, KV, S, S, hd, c, w, cp)
+              for B, H, KV, S, hd, c, w, cp in KERNEL_CASES],
+            (1, 8, 4, 100, 77, 256, False, None, 0.0),
+            (2, 28, 4, 1, 40, 128, True, 16, 0.0)]:
+        q, k, v = (torch.tensor(a).to(dtype).cuda()
+                   for a in _qkv(8, B, H, KV, Sq, Skv, hd))
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        plain = flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window, softcap=cap)
+        kernel_close(out, plain)
+    # decode over a ring cache, through transposed views
+    B, S = 4, 64
+    last = rng.integers(1, 3 * S, B)
+    kpos = torch.tensor(_ring(B, S, last, rng)).cuda()
+    qpos = torch.tensor(last[:, None].astype(np.int32)).cuda()
+    q = torch.randn(B, 1, 28, 128, device="cuda", dtype=dtype)
+    k = torch.randn(B, S, 4, 128, device="cuda", dtype=dtype)
+    v = torch.randn(B, S, 4, 128, device="cuda", dtype=dtype)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    out = flash_attention(*args, q_pos=qpos, k_pos=kpos)
+    plain = flash_attention_ref(*(t.float() for t in args), q_pos=qpos,
+                                k_pos=kpos)
+    kernel_close(out, plain)

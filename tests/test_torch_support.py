@@ -32,6 +32,14 @@ _REFERENCE_MODULES = {
     "optim": "repro.optim.optimizers",
     "mlp": "repro.models.mlp_model",
     "configs": "repro.configs",
+    "reduced": "repro.configs.reduced",
+    "layers": "repro.models.layers",
+    "attention": "repro.models.attention",
+    "transformer": "repro.models.transformer",
+    "lm": "repro.models.model",
+    "engine": "repro.serving.engine",
+    "serve": "repro.launch.serve",
+    "flash": "repro.kernels.flash_attention",
 }
 
 
