@@ -14,22 +14,33 @@ Phases, each printing one JSON line:
               one library call on the same inputs
   4. attn_kernel
               holds flash_attention against its plain version at the
-              serving path's shapes (qwen2-7b prefill at S = 128, 1024,
-              1536; decode at B = 8 over 2048 ring slots) and at the
+              serving paths' shapes (qwen2-7b prefill at S = 128, 1024,
+              1536; decode at B = 8 over 2048 ring slots; deepseek-moe-16b
+              prefill at S = 1024 and decode, 16 heads of 16) and at the
               Pallas options the path does not use (window, softcap,
               hd 64 and 256, float32, tails), element by element
               against the plain float32 result; three planted faults
               (window and causal mask off by one, a ring tile dropped)
               must fail that check; and times kernel, plain version,
               bound and scaled_dot_product_attention
-  5. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
+  5. moe_router
+              holds moe_router against its plain version at the MoE
+              serving path's shapes (T = 8 a decode step, 1326 and 1536
+              prefills, E = 64, k = 6), at mixtral's E = 8, k = 2, at
+              the limits (E = 256, k = 8; k = E), at T = 1 and tails,
+              on exact ties and on rows that underflow; three planted
+              faults (first and k-th picks swapped, the Pallas kernel's
+              repeated index, the tail tile short a row) must fail that
+              check; and times kernel, plain version, bound and
+              softmax + topk
+  6. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
               5 clients, 70,000 samples, 2 rounds) through the kernel
               lane with every launch count set to 0 just before and
               read just after; then reruns round 1 from the same
               weights and batches on the kernel lane (bitwise) and the
               slice lane (allclose)
-  6. profile  where a training step's time goes (torch.profiler)
-  7. serve    serves qwen2-7b at full width and depth (28 layers,
+  7. profile  where a training step's time goes (torch.profiler)
+  8. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -39,6 +50,21 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
+  9. serve_moe
+              after qwen2-7b's memory is released, serves
+              deepseek-moe-16b at full width and depth (28 layers, 64
+              routed experts top-6 + 2 shared, random bf16 weights drawn
+              on the card) with the same 12 requests' lengths, every
+              count set to 0 just before and read just after:
+              moe_router 27 and flash_attention 28 launches per prefill
+              and decode step; a rerun gives bitwise equal tokens; on
+              the first prompt's prefill every layer's routes through
+              the kernel are held against the plain router on the same
+              logits, and two planted faults (the first and k-th picks
+              swapped, the k-th pick in place of the first) must fail
+              that check; the logits against a prefill routed by the
+              plain version; then one decode step and one prefill
+              under torch.profiler
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
@@ -84,6 +110,19 @@ ATTN_ATOL = 1e-5
 # precision (it rounds the probabilities to bf16): tests/test_kernels.py's
 # bf16 rule, 2e-2 * max(1, |plain|max)
 LIBRARY_TOL = 2e-2
+# moe_router vs its plain version, on the same logits.  Indices are
+# equal, except where the plain probabilities at the first pick that
+# differs sit within ROUTE_MARGIN of the next (the kernel's softmax
+# rounds differently from torch.softmax by a few ulps: a flip there is
+# float drift, not a fault).  Weights of agreeing rows within
+# ROUTER_W_ATOL (weights <= 1, a few ulps apart).  Stats, sums of up to
+# 128 positive terms in another order: (n - 1) * 2^-24 * |sum| at most,
+# 7.6e-6 relative, plus a few ulps of each probability: within
+# ROUTER_STATS_ATOL + ROUTER_STATS_RTOL * |plain|.
+ROUTE_MARGIN = 1e-6
+ROUTER_W_ATOL = 1e-6
+ROUTER_STATS_ATOL = 1e-6
+ROUTER_STATS_RTOL = 2e-5
 # qwen2-7b prefill logits through the kernel vs through the plain
 # attention, |diff| over |plain| (L2 over the vocabulary): both round
 # every layer's activations to bfloat16, so a float32 sum taken in
@@ -432,6 +471,12 @@ def phase_attn_kernel() -> dict:
         ("decode B=8 over 2048 ring slots",
          (B_dec, 28, 4, 1, slots, 128, bf16, True),
          {"q_pos": qpos_dec, "k_pos": ring}, True),
+        # deepseek-moe-16b: MHA, 16 heads of 16, group 1
+        ("deepseek prefill S=1024", (1, 16, 16, 1024, 1024, 128, bf16, True),
+         {}, True),
+        ("deepseek decode B=8 over 2048 ring slots",
+         (B_dec, 16, 16, 1, slots, 128, bf16, True),
+         {"q_pos": qpos_dec, "k_pos": ring}, True),
         ("decode float32", (B_dec, 28, 4, 1, slots, 128, f32, True),
          {"q_pos": qpos_dec, "k_pos": ring}, False),
         ("window 256", (1, 28, 4, 1024, 1024, 128, bf16, False),
@@ -523,6 +568,201 @@ def phase_attn_kernel() -> dict:
                    "library": "torch.nn.functional."
                               "scaled_dot_product_attention"},
             "decode": timings["decode B=8 over 2048 ring slots"],
+            "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+def _stats_of(idx, p, bt):
+    """Per-tile (routed count + probability mass) of picks ``idx`` over
+    probabilities ``p``, tiles of ``bt`` rows, the last its real rows."""
+    T, E = p.shape
+    n_tiles = -(-T // bt)
+    rows = torch.zeros((n_tiles * bt, E), dtype=p.dtype, device=p.device)
+    rows[:T] = torch.zeros_like(p).scatter_(1, idx.long(), 1.0) + p
+    return rows.view(n_tiles, bt, E).sum(1)
+
+
+def route_reading(got, plain, logits) -> dict:
+    """A router's output ``got`` = (w, idx, stats) against the plain
+    version's on the same logits: the rows whose picks differ, and the
+    largest gap between the plain probabilities at the first pick that
+    differs and the next (a flip within ROUTE_MARGIN is float drift);
+    rows with a repeated index; the weights of the agreeing rows over
+    ROUTER_W_ATOL; and the stats over their limit, held to the stats
+    of ``got``'s own picks over the plain probabilities (tiles of
+    min(128, T) rows, the wrapper's default)."""
+    w, idx, stats = got
+    w_p, idx_p, _ = plain
+    T, E = logits.shape
+    p = torch.softmax(logits.float(), dim=-1)
+    ordered = torch.sort(idx.long(), dim=-1).values
+    repeated = int((ordered[:, 1:] == ordered[:, :-1]).any(-1).sum())
+    mismatch = idx != idx_p
+    differ = mismatch.any(-1)
+    margin = 0.0
+    if bool(differ.any()):
+        vals = torch.sort(p[differ], dim=-1, descending=True).values
+        j = mismatch[differ].int().argmax(-1)[:, None]
+        margin = float((vals.gather(1, j) -
+                        vals.gather(1, (j + 1).clamp(max=E - 1))).max())
+    agree = ~differ
+    w_err = (w - w_p).abs()[agree]
+    want = _stats_of(idx, p, min(128, T))
+    limit = ROUTER_STATS_ATOL + ROUTER_STATS_RTOL * want.abs()
+    return {"routes": T, "differ": int(differ.sum()),
+            "max_margin_of_differing": margin, "repeated": repeated,
+            "w_max_abs_err": float(w_err.max()) if w_err.numel() else 0.0,
+            "stats_excess": float(((stats - want).abs() / limit).max())}
+
+
+def route_ok(r) -> bool:
+    return r["repeated"] == 0 and r["w_max_abs_err"] <= ROUTER_W_ATOL and \
+        r["stats_excess"] <= 1.0 and \
+        (r["differ"] == 0 or r["max_margin_of_differing"] < ROUTE_MARGIN)
+
+
+def _pallas_like_router(logits, k):
+    """A planted fault: a router written as the Pallas kernel's body,
+    each pick masked by multiplying by (1 - onehot), so a row whose rest
+    underflows to 0 picks index 0 again."""
+    p = torch.softmax(logits.float(), dim=-1)
+    probs, ws, ids = p, [], []
+    for _ in range(k):
+        best = probs.argmax(-1)
+        ws.append(probs.gather(1, best[:, None])[:, 0])
+        ids.append(best)
+        probs = probs * (1.0 - torch.zeros_like(p).scatter_(
+            1, best[:, None], 1.0))
+    w = torch.stack(ws, 1)
+    idx = torch.stack(ids, 1)
+    return (w / w.sum(-1, keepdim=True), idx.to(torch.int32),
+            _stats_of(idx, p, min(128, p.shape[0])))
+
+
+def _swap_first_and_kth(out):
+    """A planted fault: the first and the k-th picks swapped."""
+    w, idx, stats = out
+    perm = list(range(idx.shape[1]))
+    perm[0], perm[-1] = perm[-1], perm[0]
+    return w[:, perm], idx[:, perm], stats
+
+
+def _kth_for_first(out):
+    """A planted fault: the k-th pick returned in place of the first
+    (an index repeated)."""
+    w, idx, stats = out
+    w, idx = w.clone(), idx.clone()
+    w[:, 0], idx[:, 0] = w[:, -1], idx[:, -1]
+    return w, idx, stats
+
+
+def _library_router(x, k):
+    """The library yardstick: softmax, topk and a division, the stats
+    by a scatter of the picks."""
+    p = torch.softmax(x, dim=-1)
+    v, i = torch.topk(p, k)
+    return v / v.sum(-1, keepdim=True), i, _stats_of(i, p, min(128,
+                                                                x.shape[0]))
+
+
+def phase_moe_router() -> dict:
+    """moe_router against its plain version; returns the kernel's
+    record for the kernels line (all but ``launches``)."""
+    from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+    gen = torch.Generator().manual_seed(2)
+
+    def rand(T, E):
+        return (torch.randn(T, E, generator=gen) * 2).cuda()
+    ties = torch.randint(0, 3, (256, 64), generator=gen).float().cuda()
+    underflow = torch.zeros(16, 64)
+    underflow[torch.arange(16), torch.arange(16) * 5 % 64] = 200.0
+    # name, logits, k, timed (a shape of the serving path)
+    cases = [("decode T=8", rand(8, 64), 6, True),
+             ("prefill T=1326", rand(1326, 64), 6, True),
+             ("prefill T=1536", rand(1536, 64), 6, True),
+             ("T=1", rand(1, 64), 6, False),
+             ("T=200, a tail tile of 72 rows", rand(200, 64), 6, False),
+             ("mixtral E=8 k=2, T=384", rand(384, 8), 2, False),
+             ("E=256 k=8, T=300", rand(300, 256), 8, False),
+             ("k = E = 5, T=77", rand(77, 5), 5, False),
+             ("exact ties", ties, 6, False),
+             ("rows that underflow", underflow.cuda(), 6, False)]
+    rows, err_max, kept, timings = [], 0.0, {}, {}
+    for name, x, k, timed in cases:
+        out = moe_router(x, k)
+        plain = moe_router_ref(x, k)
+        torch.cuda.synchronize()
+        r = route_reading(out, plain, x)
+        check(route_ok(r), f"moe_router {name}: {r}")
+        if name in ("exact ties", "rows that underflow"):
+            check(r["differ"] == 0, f"moe_router {name}: picks differ {r}")
+        again = moe_router(x, k)
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"moe_router {name}: a rerun is not bitwise equal")
+        err_max = max(err_max, r["w_max_abs_err"])
+        kept[name] = (x, k, out, plain)
+        rows.append({"case": name, "T": x.shape[0], "E": x.shape[1], "k": k,
+                     **r})
+        if not timed:
+            continue
+        lib = _library_router(x, k)
+        r_lib = route_reading(lib, plain, x)
+        check(route_ok(r_lib), f"softmax + topk yardstick {name}: {r_lib}")
+        fns = {"": lambda: moe_router(x, k),
+               "plain_": lambda: moe_router_ref(x, k),
+               "library_": lambda: _library_router(x, k)}
+        times = {}
+        for key, fn in fns.items():
+            times[key + "ms"] = device_ms(fn)
+            times[key + "eager_ms"] = eager_ms(fn, 100)
+        T, E = x.shape
+        n_tiles = -(-T // min(128, T))
+        nbytes = 4 * T * E + 8 * T * k + 4 * n_tiles * E
+        # per logit: max, subtract, exp, sum, divide; k compares; the
+        # stats' two adds
+        ops = T * E * (7 + k)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOP_PER_S * 1e3
+        timings[name] = {**times, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations", "bytes": nbytes, "ops": ops}
+
+    x, k, out, plain = kept["decode T=8"]
+    faults = {"first and k-th picks swapped":
+                  route_reading(_swap_first_and_kth(out), plain, x)}
+    x, k, out, plain = kept["rows that underflow"]
+    faults["Pallas masking: index 0 picked again"] = route_reading(
+        _pallas_like_router(x, k), plain, x)
+    x, k, out, plain = kept["prefill T=1326"]
+    p = torch.softmax(x, dim=-1)
+    short = out[2].clone()
+    short[-1] -= _stats_of(out[1][-1:], p[-1:], 1)[0]
+    faults["tail tile short its last row"] = route_reading(
+        (out[0], out[1], short), plain, x)
+    for fault, r in faults.items():
+        check(not route_ok(r), f"planted fault '{fault}' passed the "
+              f"moe_router check: {r}")
+    emit({"phase": "moe_router", "kernel": "moe_router",
+          "limits": {"route_margin": ROUTE_MARGIN,
+                     "w_atol": ROUTER_W_ATOL,
+                     "stats": f"{ROUTER_STATS_ATOL} + {ROUTER_STATS_RTOL} "
+                              "* |plain|"},
+          "cases": rows, "planted_faults": faults})
+    emit({"phase": "moe_router_times", "kernel": "moe_router",
+          "timings": timings})
+    main = timings["decode T=8"]
+    return {"name": "moe_router", "route": "cuda",
+            "source": "src/repro_torch/kernels/moe_router/csrc/"
+                      "moe_router.cu",
+            "replaces": "src/repro/kernels/moe_router/moe_router.py:51",
+            "max_abs_err": err_max,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "eager_ms": main["eager_ms"],
+            "at": {"shape": "deepseek-moe-16b decode step, T=8, E=64, k=6",
+                   "ms": "device time per call, CUDA graph of 100 calls",
+                   "library": "torch.softmax + torch.topk + division, "
+                              "stats by scatter"},
             "timings": timings}
 
 
@@ -710,67 +950,151 @@ def _logit_readings(cfg, params, prompt, cache_len, device) -> dict:
             "fault_one_tile_rel_l2": rel(logits(cut(32)))}
 
 
-def phase_serve(attn_row) -> None:
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+def _init_model(name):
+    """The architecture at full width and depth, random weights drawn on
+    the card from a seeded generator; checks the parameter count."""
     from repro_torch.configs import get_config
-    from repro_torch.core.protocol import resolve_device
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
     from repro_torch.models import build_model
-    from repro_torch.serving import Request, ServingEngine
     from repro_torch.tree import tree_leaves
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(name)
     model = build_model(cfg)
-    device = resolve_device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device).manual_seed(0))
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(params))
-    # 152064 is a multiple of 128: the padded vocab is the config's
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    # both vocabularies (152064, 102400) are multiples of 128: the padded
+    # vocab is the config's
     check(n_params == cfg.param_counts()["total"] +
-          _norm_and_bias_params(cfg), f"qwen2-7b has {n_params} parameters")
-    init_peak = torch.cuda.max_memory_allocated()
+          _norm_and_bias_params(cfg), f"{name} has {n_params} parameters")
+    return cfg, model, params, {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": n_params,
+        "weight_gb": sum(t.numel() * t.element_size() for t in leaves) / 1e9,
+        "setup_s": setup_s,
+        "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
+
+N_NEW, MAX_BATCH, CACHE_LEN = 32, 8, 2048
+# where the serving phases run: the card (a rehearsal on the CPU, at a
+# reduced size with the plain versions, sets "cpu")
+DEVICE = "cuda"
+
+
+def _prompts(cfg):
+    """12 prompts of 128-1536 tokens (numpy seed 0): more requests than
+    slots, so slots refill."""
+    import numpy as np
     rng = np.random.default_rng(0)
     lengths = rng.integers(128, 1537, 12)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in lengths]
-    n_new, max_batch, cache_len = 32, 8, 2048
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in lengths]
 
-    def requests():
-        return [Request(uid=i, prompt=p, max_new_tokens=n_new)
-                for i, p in enumerate(prompts)]
 
+def _requests(prompts):
+    from repro_torch.serving import Request
+    return [Request(uid=i, prompt=p, max_new_tokens=N_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def _counted_serve(cfg, model, params, prompts, per_layer):
+    """Serve the prompts with every launch count set to 0 just before
+    and read just after; checks the tokens, that each kernel in
+    ``per_layer`` (name -> (wrapper, layers that launch it)) launched
+    once per such layer per prefill and decode step, and that no other
+    kernel launched.  Then a rerun, whose tokens must be bitwise equal.
+    Returns (launches, engine counts, tokens, timings, peak bytes)."""
+    from repro_torch.kernels import vfl_matmul_clients
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_router import moe_router
+    wrappers = {"vfl_matmul": vfl_matmul_clients,
+                "flash_attention": flash_attention, "moe_router": moe_router}
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    vfl_matmul_clients.launches = 0
-    engine, out, t = _serve(model, params, requests(), max_batch, cache_len)
-    launches = flash_attention.launches
-    serve_peak = torch.cuda.max_memory_allocated()
+    for fn in wrappers.values():
+        fn.launches = 0
+    engine, out, t = _serve(model, params, _requests(prompts), MAX_BATCH,
+                            CACHE_LEN)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
     check(sorted(out) == list(range(len(prompts))), f"done: {sorted(out)}")
-    check(all(len(v) == n_new and all(0 <= x < cfg.vocab_size for x in v)
+    check(all(len(v) == N_NEW and all(0 <= x < cfg.vocab_size for x in v)
               for v in out.values()), "a request's tokens are not "
-          f"{n_new} in-vocab ids")
-    expected = cfg.num_layers * (engine.prefills + engine.decode_steps)
-    check(launches == expected,
-          f"flash_attention launched {launches} times, expected {expected} "
-          f"= {cfg.num_layers} x ({engine.prefills} prefills + "
-          f"{engine.decode_steps} decode steps)")
-    check(vfl_matmul_clients.launches == 0, "serving launched vfl_matmul")
-    steps, prefills = engine.decode_steps, engine.prefills
+          f"{N_NEW} in-vocab ids")
+    calls = engine.prefills + engine.decode_steps
+    for name in wrappers:
+        layers = per_layer.get(name, 0)
+        check(launches[name] == layers * calls,
+              f"{cfg.name}: {name} launched {launches[name]} times, "
+              f"expected {layers * calls} = {layers} x ({engine.prefills} "
+              f"prefills + {engine.decode_steps} decode steps)")
+    counts = {"prefills": engine.prefills, "decode_steps": engine.decode_steps}
     del engine
+    _, again, _ = _serve(model, params, _requests(prompts), MAX_BATCH,
+                         CACHE_LEN)
+    check(again == out, f"{cfg.name} serving rerun: tokens are not bitwise "
+          "equal")
+    return launches, counts, out, t, peak
 
-    _, again, _ = _serve(model, params, requests(), max_batch, cache_len)
-    check(again == out, "serving rerun: tokens are not bitwise equal")
+
+def _serve_metrics(prompts, t) -> dict:
+    step_ms = [x * 1e3 for x in t["step_s"]]
+    return {
+        "max_batch": MAX_BATCH, "cache_len": CACHE_LEN,
+        "requests": len(prompts),
+        "prompt_lengths": [len(p) for p in prompts], "new_tokens": N_NEW,
+        "wall_s": t["wall_s"],
+        "prefill_tokens_per_s": sum(map(len, prompts)) / sum(t["admit_s"]),
+        "decode_tokens_per_s": sum(t["active"]) / sum(t["step_s"]),
+        "ttft_s": {"first_request": t["first_token_s"][0],
+                   "mean": sum(t["first_token_s"]) / len(prompts),
+                   "max": max(t["first_token_s"])},
+        "decode_step_ms": {"mean": sum(step_ms) / len(step_ms),
+                           "median": sorted(step_ms)[len(step_ms) // 2],
+                           "min": min(step_ms), "max": max(step_ms)},
+        "rerun_bitwise": True}
+
+
+def _serve_profiles(model, params, prompts) -> dict:
+    """Where an engine decode step (8 slots after 8 prefills) and a
+    prefill of 1024 tokens spend their time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServingEngine
+    engine = ServingEngine(model, params, max_batch=MAX_BATCH,
+                           cache_len=CACHE_LEN)
+    for r in _requests(prompts)[:MAX_BATCH]:
+        engine.submit(r)
+    engine._admit()
+    engine.step()
+    batch = {"tokens": torch.tensor([prompts[1][:1024]], device=DEVICE)}
+    model.prefill(params, batch, cache_len=CACHE_LEN)
+    torch.cuda.synchronize()
+    profiles = {}
+    for name, fn in (("decode step, B=8", engine.step),
+                     ("prefill, S=1024", lambda: model.prefill(
+                         params, batch, cache_len=CACHE_LEN))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profiles[name] = _profile_rows(prof, wall_ms, 1)
+    return profiles
+
+
+def phase_serve(attn_row) -> None:
+    cfg, model, params, info = _init_model("qwen2-7b")
+    prompts = _prompts(cfg)
+    launches, counts, _, t, peak = _counted_serve(
+        cfg, model, params, prompts, {"flash_attention": cfg.num_layers})
 
     # the first prompt's logits, kernel vs plain attention, and the
     # planted faults the comparison must see
-    logit = _logit_readings(cfg, params, prompts[0], cache_len, device)
+    logit = _logit_readings(cfg, params, prompts[0], CACHE_LEN, DEVICE)
     emit({"phase": "serve_logits", "rtol": SERVE_LOGIT_RTOL, **logit})
     check(logit["rel_l2"] <= SERVE_LOGIT_RTOL,
           f"prefill logits, kernel vs plain attention: |diff| / |plain| = "
@@ -779,57 +1103,102 @@ def phase_serve(attn_row) -> None:
           f"planted fault (one 32-key tile missed) passed the logits check: "
           f"{logit['fault_one_tile_rel_l2']} <= {SERVE_LOGIT_RTOL}")
 
-    prompt_tokens = int(lengths.sum())
-    decode_tokens = sum(t["active"])
-    step_ms = [x * 1e3 for x in t["step_s"]]
-    attn_row["launches"] = launches
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "heads": [cfg.num_heads,
-                                            cfg.num_kv_heads],
-          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
-          "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-          "params": n_params, "weight_gb": weight_bytes / 1e9,
-          "setup_s": setup_s, "init_peak_gb": init_peak / 1e9,
-          "serve_peak_gb": serve_peak / 1e9,
-          "max_batch": max_batch, "cache_len": cache_len,
-          "requests": len(prompts), "prompt_lengths": lengths.tolist(),
-          "new_tokens": n_new, "prefills": prefills, "decode_steps": steps,
-          "flash_attention_launches": launches,
-          "wall_s": t["wall_s"],
-          "prefill_tokens_per_s": prompt_tokens / sum(t["admit_s"]),
-          "decode_tokens_per_s": decode_tokens / sum(t["step_s"]),
-          "ttft_s": {"first_request": t["first_token_s"][0],
-                     "mean": sum(t["first_token_s"]) / len(prompts),
-                     "max": max(t["first_token_s"])},
-          "decode_step_ms": {"mean": sum(step_ms) / len(step_ms),
-                             "median": sorted(step_ms)[len(step_ms) // 2],
-                             "min": min(step_ms), "max": max(step_ms)},
-          "rerun_bitwise": True,
+    attn_row["launches"] = launches["flash_attention"]
+    emit({"phase": "serve", **info, "serve_peak_gb": peak / 1e9, **counts,
+          "flash_attention_launches": launches["flash_attention"],
+          **_serve_metrics(prompts, t),
           "logits_kernel_vs_plain_rel_l2": logit["rel_l2"]})
+    emit({"phase": "serve_profile", **_serve_profiles(model, params,
+                                                      prompts)})
 
-    # where an engine decode step (8 slots after 8 prefills) and a
-    # prefill spend their time
-    engine = ServingEngine(model, params, max_batch=max_batch,
-                           cache_len=cache_len)
-    for r in requests()[:max_batch]:
-        engine.submit(r)
-    engine._admit()
-    engine.step()
-    batch = {"tokens": torch.tensor([prompts[1][:1024]], device=device)}
-    model.prefill(params, batch, cache_len=cache_len)
-    torch.cuda.synchronize()
-    profiles = {}
-    for name, fn in (("decode step, B=8", engine.step),
-                     ("prefill, S=1024", lambda: model.prefill(
-                         params, batch, cache_len=cache_len))):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        profiles[name] = _profile_rows(prof, wall_ms, 1)
-    emit({"phase": "serve_profile", **profiles})
+
+def _route_readings(cfg, params, prompt) -> dict:
+    """The prompt's prefill through the kernel router, every MoE layer's
+    routes held against the plain router on the same logits (the run
+    goes on with the kernel's), and two planted faults read the same
+    way; then the last-token logits against a prefill routed by the
+    plain version, |diff| over |plain| (L2 over the vocabulary)."""
+    from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+    from repro_torch.models import build_model
+    faults = {"first and k-th picks swapped": _swap_first_and_kth,
+              "k-th pick in place of the first": _kth_for_first}
+    readings = {"kernel": [], **{name: [] for name in faults}}
+
+    def route(logits, k):
+        out = moe_router(logits, k)
+        plain = moe_router_ref(logits, k)
+        readings["kernel"].append(route_reading(out, plain, logits))
+        for name, fault in faults.items():
+            readings[name].append(route_reading(fault(out), plain, logits))
+        return out
+
+    batch = {"tokens": torch.tensor([prompt], device=DEVICE)}
+
+    def logits(router):
+        return build_model(cfg, route=router).prefill(
+            params, batch, cache_len=CACHE_LEN)[0].flatten()
+    kernel = logits(route)
+    plain = logits(moe_router_ref)
+    out = {"prompt_tokens": len(prompt), "moe_layers": len(
+        readings["kernel"])}
+    for name, rs in readings.items():
+        out[name] = {
+            "routes": sum(r["routes"] for r in rs),
+            "differ": sum(r["differ"] for r in rs),
+            "max_margin_of_differing": max(r["max_margin_of_differing"]
+                                           for r in rs),
+            "repeated": sum(r["repeated"] for r in rs),
+            "w_max_abs_err": max(r["w_max_abs_err"] for r in rs),
+            "stats_excess": max(r["stats_excess"] for r in rs),
+            "ok": all(route_ok(r) for r in rs)}
+    out.update({
+        "logits_rel_l2": float((kernel - plain).norm() / plain.norm()),
+        "logits_max_abs": max_err(kernel, plain),
+        "logits_max_abs_plain": float(plain.abs().max()),
+        "same_top1": int(kernel.argmax()) == int(plain.argmax()),
+        "finite": bool(torch.isfinite(kernel).all())})
+    return out
+
+
+def phase_serve_moe(router_row, attn_row) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg, model, params, info = _init_model("deepseek-moe-16b")
+    n_moe = sum(kind["ffn"] == "moe" for kind in model.kinds)
+    check(n_moe == 27, f"deepseek-moe-16b has {n_moe} MoE layers")
+    prompts = _prompts(cfg)
+    launches, counts, _, t, peak = _counted_serve(
+        cfg, model, params, prompts,
+        {"flash_attention": cfg.num_layers, "moe_router": n_moe})
+
+    routes = _route_readings(cfg, params, prompts[0])
+    emit({"phase": "serve_moe_routes", "route_margin": ROUTE_MARGIN,
+          **routes})
+    check(routes["kernel"]["ok"], "prefill routes, kernel vs plain router: "
+          f"{routes['kernel']}")
+    check(routes["finite"], "deepseek-moe-16b prefill logits not finite")
+    for fault in ("first and k-th picks swapped",
+                  "k-th pick in place of the first"):
+        check(not routes[fault]["ok"], f"planted fault '{fault}' passed "
+              f"the route check: {routes[fault]}")
+
+    router_row["launches"] = launches["moe_router"]
+    attn_row["launches_serve_moe"] = launches["flash_attention"]
+    emit({"phase": "serve_moe", **info,
+          "experts": [cfg.num_experts, cfg.num_experts_per_tok,
+                      cfg.num_shared_experts],
+          "moe_d_ff": cfg.moe_d_ff,
+          "first_layer_dense_ff": cfg.first_layer_dense_ff,
+          "allocated_before_gb": held / 1e9, "serve_peak_gb": peak / 1e9,
+          **counts, "moe_router_launches": launches["moe_router"],
+          "flash_attention_launches": launches["flash_attention"],
+          **_serve_metrics(prompts, t),
+          "routes_differ": routes["kernel"]["differ"],
+          "logits_kernel_vs_plain_router_rel_l2": routes["logits_rel_l2"]})
+    emit({"phase": "serve_moe_profile", **_serve_profiles(model, params,
+                                                          prompts)})
 
 
 def _norm_and_bias_params(cfg):
@@ -845,13 +1214,15 @@ def main() -> None:
     phase_build()
     kernel_row = phase_kernel()
     attn_row = phase_attn_kernel()
+    router_row = phase_moe_router()
     from repro_torch.core.protocol import ProtocolConfig
     pcfg = ProtocolConfig(dataset="mnist", n_clients=5, n_samples=70000,
                           rounds=2, epochs=1, batch_size=64)
     phase_train(kernel_row, pcfg)
     phase_profile(pcfg.replace(n_samples=4000))
     phase_serve(attn_row)
-    emit({"kernels": [kernel_row, attn_row]})
+    phase_serve_moe(router_row, attn_row)
+    emit({"kernels": [kernel_row, attn_row, router_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
 

@@ -1,8 +1,9 @@
 """Architecture configs of the port.  Each architecture lives in its own
 module and registers itself on import; ``load_all()`` imports every
-module once.  The port of ``repro.configs``: only the dense family is
-listed (qwen2, qwen1.5, gemma2); the others raise NotImplementedError
-from ``get_config`` (ROADMAP.md, Queue 1 item 10).  The paper's MLPs
+module once.  The port of ``repro.configs``: the dense family (qwen2,
+qwen1.5, gemma2) and the MoE family (deepseek-moe, mixtral) are
+listed; the others raise NotImplementedError from ``get_config``
+(ROADMAP.md, Queue 1 item 10).  The paper's MLPs
 keep their own ``MLPConfig`` registry in ``paper_mlp``."""
 import importlib
 
@@ -17,7 +18,8 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs.paper_mlp import MLPConfig  # noqa: F401
 
-_MODULES = ["qwen2_7b", "qwen1_5_0_5b", "qwen1_5_4b", "gemma2_2b"]
+_MODULES = ["qwen2_7b", "qwen1_5_0_5b", "qwen1_5_4b", "gemma2_2b",
+            "deepseek_moe_16b", "mixtral_8x22b"]
 
 _loaded = False
 

@@ -1,8 +1,8 @@
-"""Reduced variants of the dense architectures for CPU tests: 2 layers,
-d_model 256, tiny vocab, float32.  Same code paths as the full configs.
-The port's copy of ``repro.configs.reduced``, cut to the branches the
-dense family takes (the MoE, SSM, hybrid and modality branches come
-with those families)."""
+"""Reduced variants of the dense and MoE architectures for CPU tests: 2
+layers, d_model 256, <=4 experts, tiny vocab, float32.  Same code paths
+as the full configs.  The port's copy of ``repro.configs.reduced``, cut
+to the branches the dense and MoE families take (the SSM, hybrid and
+modality branches come with those families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, get_config
@@ -21,6 +21,16 @@ def reduced_config(name: str, **extra) -> ModelConfig:
         remat=False,
         dtype="float32",
     )
+    if cfg.family == "moe":
+        # generous capacity: routing is lossless at test token counts
+        # (the reference's choice; the tests also run the default 1.25,
+        # which drops pairs)
+        kw.update(num_experts=4, num_experts_per_tok=2, moe_d_ff=128,
+                  expert_capacity_factor=8.0)
+        if cfg.num_shared_experts:
+            kw.update(num_shared_experts=1)
+        if cfg.first_layer_dense_ff:
+            kw.update(first_layer_dense_ff=256)
     if cfg.attn_type in ("swa", "local_global"):
         kw.update(window_size=16)
     if cfg.num_heads and cfg.num_heads == cfg.num_kv_heads:

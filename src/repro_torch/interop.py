@@ -35,9 +35,19 @@ def params_from_numpy(tree, device, dtype=torch.float32) -> dict:
     return tree_map(lambda a: _tensor(a, device, dtype), tree)
 
 
+def _array(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes        # numpy's bfloat16, as the reference's arrays
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_to_numpy(tree) -> dict:
-    """A tree of tensors as numpy arrays (copied to the host)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """A tree of tensors as numpy arrays (copied to the host), each in
+    its own dtype: bfloat16 leaves as ``ml_dtypes``' bfloat16 (imported
+    only for them), the inverse of ``params_from_numpy(..., dtype=None)``."""
+    return tree_map(_array, tree)
 
 
 def state_to_numpy(state) -> dict:

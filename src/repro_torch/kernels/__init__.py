@@ -3,9 +3,13 @@
 #   vfl_matmul       -- the all-clients first-layer matmul (CUDA C++, sm_90a)
 #   flash_attention  -- the LM's prefill and decode attention (CUDA C++,
 #                       sm_90a)
+#   moe_router       -- the MoE layer's softmax, top-k and load stats
+#                       (CUDA C++, sm_90a)
 # Each package: csrc/ (the CUDA source), ops.py (wrapper, launch count,
 # and vfl_matmul's autograd.Function), ref.py (the plain PyTorch
 # version).  build.py compiles the sources with nvcc at first use.
+from repro_torch.kernels.moe_router.ops import moe_router  # noqa: F401
+from repro_torch.kernels.moe_router.ref import moe_router_ref  # noqa: F401
 from repro_torch.kernels.vfl_matmul.ops import (  # noqa: F401
     vfl_matmul, vfl_matmul_clients,
 )

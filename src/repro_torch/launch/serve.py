@@ -1,13 +1,15 @@
 """Serving entry point: batched single-token decode against a KV
 cache.  The port of ``repro.launch.serve``.
 
-On the GPU, at full width with random weights::
+Any architecture of the dense or MoE family (``--arch qwen2-7b``,
+``--arch deepseek-moe-16b``; mixtral-8x22b does not fit one card at full
+size).  On the GPU, at full width with random weights::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
 
 On the CPU, at the reduced size::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --device cpu --reduced
 """
 from __future__ import annotations

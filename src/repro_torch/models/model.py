@@ -1,5 +1,5 @@
 """Top-level Model: config -> init / forward / prefill / decode.  The
-port of ``repro.models.model`` for the dense family.  The paper's MLPs
+port of ``repro.models.model`` for the dense and MoE families.  The paper's MLPs
 run through ``PaperMLP`` (stacked clients), which the federation builds
 itself.
 
@@ -11,8 +11,10 @@ forward-only, under ``torch.no_grad()``: the LM's training path
 
 ``attend`` is the attention function every layer calls, with
 ``flash_attention``'s signature (None: ``flash_attention``, the kernel
-on CUDA tensors); ``chip_smoke.py`` passes the plain version, and a
-planted fault, to read the kernel's effect on the logits.
+on CUDA tensors); ``route`` is the router every MoE layer calls, with
+``moe_router``'s signature (None: ``moe_router``, the kernel on CUDA
+tensors).  ``chip_smoke.py`` passes the plain versions, and planted
+faults, to read the kernels' effect on the logits and the routes.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ def padded_vocab(v: int) -> int:
 class Model:
     """Decoder-only LM assembled from a ModelConfig."""
 
-    def __init__(self, cfg, attend=None):
+    def __init__(self, cfg, attend=None, route=None):
         if cfg.is_encoder_decoder or cfg.modality != "text":
             raise T._unported(f"the {cfg.family!r} family ({cfg.name})")
         self.cfg = cfg
@@ -37,6 +39,7 @@ class Model:
         self.kinds = T.layer_kinds(cfg)
         self.vocab = padded_vocab(cfg.vocab_size)
         self.attend = attend
+        self.route = route
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -72,7 +75,7 @@ class Model:
         h = T.embed_input(params, tokens, cfg)
         positions = self._positions(h.shape[1], h.device)
         h, aux = T.stack_apply(params["stack"], h, positions, cfg,
-                               self.kinds, self.attend)
+                               self.kinds, self.attend, self.route)
         h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
         return T.logits_from_hidden(params, h, cfg), aux
 
@@ -93,7 +96,7 @@ class Model:
         positions = self._positions(S_total, h.device)
         h, cache = T.stack_prefill(params["stack"], h, positions, cfg,
                                    self.kinds, B, cache_len, self.dtype,
-                                   self.attend)
+                                   self.attend, self.route)
         h = L.apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm_type)
         logits = T.logits_from_hidden(params, h, cfg)
         state = {"cache": cache,
@@ -123,7 +126,7 @@ class Model:
         pos = state["position"]
         h, new_cache = T.stack_decode(params["stack"], h, pos, cfg,
                                       self.kinds, state["cache"],
-                                      self.attend)
+                                      self.attend, self.route)
         h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
         logits = T.logits_from_hidden(params, h, cfg)
         new_state = dict(state)
@@ -132,9 +135,9 @@ class Model:
         return logits, new_state
 
 
-def build_model(cfg, attend=None):
+def build_model(cfg, attend=None, route=None):
     if getattr(cfg, "family", "mlp") == "mlp":
         raise ValueError(
             f"{cfg.name} is a paper MLP: repro_torch runs it through "
             "repro_torch.models.PaperMLP (stacked clients), not Model")
-    return Model(cfg, attend)
+    return Model(cfg, attend, route)

@@ -1,7 +1,8 @@
 """Decoder stacks assembled from a ModelConfig: the port of
-``repro.models.transformer`` for the attention mixer and the dense FFN
-(the dense family).  Mamba, RWKV, MoE and cross-attention kinds raise
-NotImplementedError (ROADMAP.md, Queue 1 item 10).
+``repro.models.transformer`` for the attention mixer and the dense,
+layer-0 dense (``dense0``) and MoE FFNs (the dense and MoE families).
+Mamba, RWKV and cross-attention kinds raise NotImplementedError
+(ROADMAP.md, Queue 1 item 10).
 
 Layer stacks keep the reference's (prefix, periodic-group) form and its
 parameter tree: the periodic part lives under ``"scanned"`` with a
@@ -15,7 +16,10 @@ multi-client ``exchange_features`` path (``shard_map`` over the
 embedding's client-sharded d_model) is not ported yet.
 
 ``attend`` (block and stack functions) is the attention function,
-passed through to ``models.attention`` (None: ``flash_attention``).
+passed through to ``models.attention`` (None: ``flash_attention``), and
+``route`` the router function, passed through to ``models.moe`` (None:
+``moe_router``).  The MoE load-balance loss is summed over the stack by
+``stack_apply``, as in the reference; prefill and decode drop it.
 """
 from __future__ import annotations
 
@@ -23,13 +27,15 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.tree import tree_map
 
 
 def _unported(what):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (only the dense family: "
-        "attention mixers, dense FFNs); see ROADMAP.md, Queue 1 item 10")
+        f"{what} is not ported to repro_torch yet (only the dense and MoE "
+        "families: attention mixers, dense and MoE FFNs); see ROADMAP.md, "
+        "Queue 1 item 10")
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +87,7 @@ def periodic_split(kinds):
 def _check_kind(kind):
     if kind["mixer"] != "attn":
         raise _unported(f"the {kind['mixer']!r} mixer")
-    if kind["ffn"] != "dense":
+    if kind["ffn"] not in ("dense", "dense0", "moe"):
         raise _unported(f"the {kind['ffn']!r} FFN")
     if kind["cross"]:
         raise _unported("cross attention (encoder-decoder)")
@@ -93,13 +99,26 @@ def _check_kind(kind):
 def block_init(generator, cfg, kind, dtype):
     _check_kind(kind)
     D, dev = cfg.d_model, generator.device
-    return {"pre_norm": L.norm_init(D, cfg.norm_type, dev),
-            "attn": A.attn_init(generator, cfg, dtype),
-            "ffn_norm": L.norm_init(D, cfg.norm_type, dev),
-            "ffn": L.mlp_init(generator, D, cfg.d_ff, cfg.act, dtype)}
+    p = {"pre_norm": L.norm_init(D, cfg.norm_type, dev),
+         "attn": A.attn_init(generator, cfg, dtype),
+         "ffn_norm": L.norm_init(D, cfg.norm_type, dev)}
+    if kind["ffn"] == "moe":
+        p["moe"] = M.moe_init(generator, cfg, dtype)
+    else:
+        width = cfg.first_layer_dense_ff if kind["ffn"] == "dense0" \
+            else cfg.d_ff
+        p["ffn"] = L.mlp_init(generator, D, width, cfg.act, dtype)
+    return p
 
 
-def block_apply(p, x, positions, cfg, kind, attend=None):
+def _ffn(p, h2, cfg, kind, route, with_aux=False):
+    """The block's FFN on its normed input: (y, aux or None)."""
+    if kind["ffn"] == "moe":
+        return M.moe_apply(p["moe"], h2, cfg, route, with_aux)
+    return L.mlp_apply(p["ffn"], h2, cfg.act), None
+
+
+def block_apply(p, x, positions, cfg, kind, attend=None, route=None):
     """Full-sequence block. Returns (x, aux_loss); aux is 0 without MoE."""
     _check_kind(kind)
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
@@ -107,12 +126,14 @@ def block_apply(p, x, positions, cfg, kind, attend=None):
                          layer_window=kind["window"],
                          causal=kind.get("causal", True), attend=attend)
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    x = x + L.mlp_apply(p["ffn"], h2, cfg.act)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(p, h2, cfg, kind, route, with_aux=True)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
-                  attend=None):
+                  attend=None, route=None):
     """Full-sequence forward that also emits the decode cache for this
     block (forward-only: the inference-prefill path)."""
     _check_kind(kind)
@@ -129,8 +150,7 @@ def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
     cache = {"attn": A.fill_cache_from_prefill(empty, k, v, positions,
                                                batch)}
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    x = x + L.mlp_apply(p["ffn"], h2, cfg.act)
-    return x, cache
+    return x + _ffn(p, h2, cfg, kind, route)[0], cache
 
 
 def block_init_cache(cfg, kind, batch, seq_len, dtype, device=None):
@@ -139,7 +159,8 @@ def block_init_cache(cfg, kind, batch, seq_len, dtype, device=None):
                                  device)}
 
 
-def block_decode(p, x, position, cfg, kind, cache, attend=None):
+def block_decode(p, x, position, cfg, kind, cache, attend=None,
+                 route=None):
     """One-token decode. Returns (x, cache), the cache written in
     place."""
     _check_kind(kind)
@@ -150,8 +171,7 @@ def block_decode(p, x, position, cfg, kind, cache, attend=None):
         layer_window=kind["window"], attend=attend)
     x = x + y
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    x = x + L.mlp_apply(p["ffn"], h2, cfg.act)
-    return x, new_cache
+    return x + _ffn(p, h2, cfg, kind, route)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -200,18 +220,18 @@ def stack_init(generator, cfg, kinds, dtype):
     return params
 
 
-def stack_apply(params, x, positions, cfg, kinds, attend=None):
+def stack_apply(params, x, positions, cfg, kinds, attend=None, route=None):
     layout = StackLayout(cfg, kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(layout.prefix):
         x, a = block_apply(params[f"layer_{i}"], x, positions, cfg, kinds[i],
-                           attend)
+                           attend, route)
         aux = aux + a
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         for j, kind in enumerate(layout.group_kinds):
             x, a = block_apply(gparams[f"sub_{j}"], x, positions, cfg, kind,
-                               attend)
+                               attend, route)
             aux = aux + a
     return x, aux
 
@@ -232,13 +252,13 @@ def stack_init_cache(cfg, kinds, batch, seq_len, dtype, device=None):
 
 
 def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
-                  dtype, attend=None):
+                  dtype, attend=None, route=None):
     layout = StackLayout(cfg, kinds)
     cache = {}
     for i in range(layout.prefix):
         x, cache[f"layer_{i}"] = block_prefill(
             params[f"layer_{i}"], x, positions, cfg, kinds[i], batch,
-            cache_len, dtype, attend)
+            cache_len, dtype, attend, route)
     groups = []
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
@@ -246,27 +266,28 @@ def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
         for j, kind in enumerate(layout.group_kinds):
             x, newc[f"sub_{j}"] = block_prefill(
                 gparams[f"sub_{j}"], x, positions, cfg, kind, batch,
-                cache_len, dtype, attend)
+                cache_len, dtype, attend, route)
         groups.append(newc)
     if groups:
         cache["scanned"] = tree_map(lambda *xs: torch.stack(xs), *groups)
     return x, cache
 
 
-def stack_decode(params, x, position, cfg, kinds, cache, attend=None):
+def stack_decode(params, x, position, cfg, kinds, cache, attend=None,
+                 route=None):
     """One-token decode over the stack; every layer's cache is written
     in place and ``cache`` is returned."""
     layout = StackLayout(cfg, kinds)
     for i in range(layout.prefix):
         x, cache[f"layer_{i}"] = block_decode(
             params[f"layer_{i}"], x, position, cfg, kinds[i],
-            cache[f"layer_{i}"], attend)
+            cache[f"layer_{i}"], attend, route)
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         gcache = _group(cache["scanned"], g)
         for j, kind in enumerate(layout.group_kinds):
             x, _ = block_decode(gparams[f"sub_{j}"], x, position, cfg, kind,
-                                gcache[f"sub_{j}"], attend)
+                                gcache[f"sub_{j}"], attend, route)
     return x, cache
 
 

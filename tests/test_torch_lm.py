@@ -122,7 +122,7 @@ def test_unported_families_raise_and_input_shapes_match(ref):
          for k, v in ref.configs.INPUT_SHAPES.items()}
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         T.block_init(torch.Generator(), reduced_config("qwen2-7b"),
-                     {"mixer": "attn", "ffn": "moe", "window": None,
+                     {"mixer": "mamba", "ffn": "dense", "window": None,
                       "cross": False}, torch.float32)
 
 

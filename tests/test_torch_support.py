@@ -40,6 +40,8 @@ _REFERENCE_MODULES = {
     "engine": "repro.serving.engine",
     "serve": "repro.launch.serve",
     "flash": "repro.kernels.flash_attention",
+    "moe": "repro.models.moe",
+    "router": "repro.kernels.moe_router",
 }
 
 
