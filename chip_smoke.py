@@ -33,14 +33,33 @@ Phases, each printing one JSON line:
               repeated index, the tail tile short a row) must fail that
               check; and times kernel, plain version, bound and
               softmax + topk
-  6. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
+  6. rwkv6_scan
+              holds rwkv6_scan against its plain version at the ssm
+              serving path's shapes (rwkv6-1.6b prefill B = 1, T = 1326
+              and 1536, H = 32, hd = 64; decode B = 8, T = 1 from a
+              random state) and beyond it (hd 128, bf16 inputs, a split
+              run: T1 then T2 from the state against one run of T),
+              element by element against the plain float32 result;
+              three planted faults (the bonus u dropped, the state
+              updated before the output is read, the input state
+              ignored) must fail that check; and times kernel, plain
+              version and bound (no single PyTorch call computes the
+              recurrence)
+  7. mamba_scan
+              the same for mamba_scan at the hybrid serving path's
+              shapes (jamba prefill B = 1, T = 1326 and 1536, D = 8192,
+              N = 16; decode B = 8, T = 1 from a random h) and beyond
+              (N = 8, tails of D, bf16 inputs, a split run); planted
+              faults: y read from h_{t-1}, the input h ignored, the
+              last channel tile short one channel
+  8. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
               5 clients, 70,000 samples, 2 rounds) through the kernel
               lane with every launch count set to 0 just before and
               read just after; then reruns round 1 from the same
               weights and batches on the kernel lane (bitwise) and the
               slice lane (allclose)
-  7. profile  where a training step's time goes (torch.profiler)
-  8. serve    serves qwen2-7b at full width and depth (28 layers,
+  9. profile  where a training step's time goes (torch.profiler)
+ 10. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -50,7 +69,7 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
-  9. serve_moe
+ 11. serve_moe
               after qwen2-7b's memory is released, serves
               deepseek-moe-16b at full width and depth (28 layers, 64
               routed experts top-6 + 2 shared, random bf16 weights drawn
@@ -65,6 +84,32 @@ Phases, each printing one JSON line:
               that check; the logits against a prefill routed by the
               plain version; then one decode step and one prefill
               under torch.profiler
+ 12. serve_rwkv
+              after deepseek-moe-16b's memory is released, serves
+              rwkv6-1.6b at full width and depth (24 layers, random bf16
+              weights drawn on the card) with the same 12 requests'
+              lengths: rwkv6_scan 24 launches per prefill and decode
+              step and no other kernel; a rerun gives bitwise equal
+              tokens; on the first prompt's prefill every layer's scan
+              through the kernel is held against the plain version on
+              the same inputs (a planted fault, the bonus dropped, must
+              fail), and the logits against a prefill through the plain
+              scan (the same fault must exceed that limit); the state
+              carry: prefill(prompt[:n]) then one decode step against
+              prefill(prompt[:n + 1]), on the logits and every layer's
+              state, which a decode from a zeroed state must fail; then
+              one decode step and one prefill under torch.profiler
+ 13. serve_hybrid
+              after rwkv6-1.6b's memory is released, serves
+              jamba-v0.1-52b at full width and cut depth (16 of its 32
+              layers: 103.15 GB of bf16 weights do not fit the card's
+              80 GB; 14 Mamba, 2 attention, 8 MoE layers) the same way:
+              mamba_scan 14, flash_attention 2 and moe_router 8
+              launches per prefill and decode step; rerun bitwise; every
+              Mamba layer's scan held against the plain version on the
+              first prompt's prefill (planted faults: y read from
+              h_{t-1}, the last channel tile short one channel); logits
+              against the plain scan; the state carry; profiles
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
@@ -123,6 +168,20 @@ ROUTE_MARGIN = 1e-6
 ROUTER_W_ATOL = 1e-6
 ROUTER_STATS_ATOL = 1e-6
 ROUTER_STATS_RTOL = 2e-5
+# rwkv6_scan and mamba_scan vs their plain versions, element by element
+# against the plain version's float32 result on the same (upcast)
+# inputs: |kernel - plain| <= SCAN_ATOL * max(1, |plain|max) +
+# SCAN_RTOL * |plain|.  Each output is a float32 sum taken in another
+# order (rwkv: hd terms r_i (S_ij + u_i k_i v_j), each as large as the
+# output; mamba: N terms after a fused multiply-add) and carried through
+# the state, so the error scales with the output's size, not each
+# element's: float32 cases read at most 0.12 of this limit (rwkv's
+# prefill, outputs up to 237) and 0.056 (mamba's), measured on an NVIDIA
+# H100 80GB HBM3, power limit 700 W.  A bf16 output is its float32
+# result rounded once: 2^-8 of |plain| more (bf16 cases read 0.991 and
+# 0.992 of the limit, the rounding's own bound).
+SCAN_ATOL = 2e-6
+SCAN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5 + 2.0 ** -8}
 # qwen2-7b prefill logits through the kernel vs through the plain
 # attention, |diff| over |plain| (L2 over the vocabulary): both round
 # every layer's activations to bfloat16, so a float32 sum taken in
@@ -134,6 +193,32 @@ ROUTER_STATS_RTOL = 2e-5
 # 80GB HBM3, power limit 700 W; the limit sits 3x above the first and
 # 4x under the planted tile.
 SERVE_LOGIT_RTOL = 5e-2
+# rwkv6-1.6b and jamba prefill logits through the scan kernel vs through
+# its plain version, |diff| over |plain| (L2 over the vocabulary), as
+# SERVE_LOGIT_RTOL: every layer's scan agrees with the plain version to
+# float32 (checked element by element on the same prompt), but the bf16
+# activations round differently where the float32 scans differ in the
+# last bits, and the flips compound through the layers: 0.0567 (rwkv, 24
+# layers) and 0.0165 (jamba, 16); the planted faults read 0.665 (rwkv,
+# the bonus dropped) and 0.390 (jamba, y read from h_{t-1}).  Measured
+# on an NVIDIA H100 80GB HBM3, power limit 700 W; the limit sits 2.6x
+# above the larger honest reading and 2.6x under the smaller fault.
+SSM_LOGIT_RTOL = 0.15
+# the state carry, prefill(prompt[:n]) + one decode step against
+# prefill(prompt[:n + 1]), |diff| over |plain| (L2): the last logits,
+# and every recurrent layer's state (the largest).  The two paths
+# compute bf16 activations with other GEMM shapes (one row against
+# n + 1), and jamba's conv is a sum of bf16 products in prefill and an
+# einsum in decode, as in the reference: logits 0.0157 (rwkv) and
+# 0.0393 (jamba), states 0.0012 and 0.0268.  A decode from a zeroed
+# state reads 1.10 and 0.99 (rwkv logits, state) and 0.0402 and 0.247
+# (jamba): with random weights jamba's Mamba output is dominated by its
+# D x skip term, so only the state reading sees the fault there.
+# Measured on an NVIDIA H100 80GB HBM3, power limit 700 W; each limit
+# sits 3x above the larger honest reading, the state limit 3.1x under
+# jamba's zeroed state.
+CARRY_LOGIT_RTOL = 0.12
+CARRY_STATE_RTOL = 0.08
 
 
 def emit(obj) -> None:
@@ -767,6 +852,319 @@ def phase_moe_router() -> dict:
 
 
 # ---------------------------------------------------------------------------
+def scan_excess(out, ref) -> float:
+    """The largest |out - ref| over its limit, SCAN_ATOL * max(1,
+    |ref|max) + SCAN_RTOL * |ref| with ref the plain float32 result (a
+    bf16 ``out`` gets the bf16 rtol): 1 or less passes."""
+    rtol = SCAN_RTOL[out.dtype]
+    limit = SCAN_ATOL * max(1.0, float(ref.abs().max())) + \
+        rtol * ref.abs()
+    return float(((out.float() - ref).abs() / limit).max())
+
+
+def _scan_reading(got, plain) -> dict:
+    """A scan's (output, state) against the plain version's float32
+    (output, state): the excess of each over its limit, and the max
+    |difference|."""
+    (o, s), (o_p, s_p) = got, plain
+    return {"excess": scan_excess(o, o_p),
+            "state_excess": scan_excess(s, s_p),
+            "max_abs_err": max(max_err(o.float(), o_p), max_err(s, s_p))}
+
+
+def _scan_ok(r) -> bool:
+    return r["excess"] <= 1.0 and r["state_excess"] <= 1.0
+
+
+def _scan_timings(fn, plain, decode, nbytes, flops) -> dict:
+    """Kernel and plain version timed on the same inputs (CUDA graphs of
+    100 calls at a decode step; at a prefill 20 kernel calls and one
+    call of the plain version's Python loop over T), eager, and the
+    bound: the bytes over HBM_BYTES_PER_S, the float32 operations over
+    FP32_FLOP_PER_S."""
+    calls, plain_calls = (100, 100) if decode else (20, 1)
+    times = {"ms": device_ms(fn, calls=calls, replays=3),
+             "eager_ms": eager_ms(fn, calls),
+             "plain_ms": device_ms(plain, calls=plain_calls, replays=2),
+             "plain_eager_ms": eager_ms(plain, plain_calls),
+             "library_ms": None}
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {**times, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _rwkv_inputs(gen, B, T, H, hd, dtype, with_state):
+    """r, k, v ~ N(0, 1) and the decay of rwkv6's init, w =
+    exp(-exp(-4 + 0.5 N(0, 1))) (w near 0.98: ~50 steps of memory), u
+    its init 0.5 plus noise; a random state ~ 3 N(0, 1), the size the
+    serving path's states reach."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    r, k, v = rand(B, T, H, hd), rand(B, T, H, hd), rand(B, T, H, hd)
+    w = torch.exp(-torch.exp(-4 + 0.5 * rand(B, T, H, hd)))
+    u = 0.5 + 0.1 * rand(H, hd)
+    s0 = 3 * rand(B, H, hd, hd) if with_state else None
+    return [x.to(dtype) for x in (r, k, v, w)] + [u, s0]
+
+
+def _rwkv_update_first(r, k, v, w, u, state):
+    """A planted fault: the state updated before the output is read,
+    o_t = r_t (S_t + u k_t v_t) with S_t already holding step t."""
+    B, T, H, hd = r.shape
+    S = state.clone()
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None].float() * v[:, t, :, None, :].float()
+        S = w[:, t, :, :, None].float() * S + kv
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                                 S + u[..., None] * kv))
+    return torch.stack(outs, 1), S
+
+
+# name, (B, T, H, hd, dtype, from a state), timed (the serving path's
+# shape): rwkv6-1.6b's prefill of the first and the longest prompt, a
+# decode step of 8 slots; then what the path does not run
+RWKV_CASES = [
+    ("prefill T=1326", (1, 1326, 32, 64, torch.float32, False), True),
+    ("prefill T=1536", (1, 1536, 32, 64, torch.float32, False), True),
+    ("decode B=8", (8, 1, 32, 64, torch.float32, True), True),
+    ("hd 128, B=2, T=300, from a state",
+     (2, 300, 4, 128, torch.float32, True), False),
+    ("bf16 inputs, T=512, from a state",
+     (1, 512, 32, 64, torch.bfloat16, True), False)]
+
+
+def phase_rwkv6_scan() -> dict:
+    """rwkv6_scan against its plain version; returns the kernel's record
+    for the kernels line (all but ``launches``)."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_ref
+    gen = torch.Generator().manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows, kept, timings, err_max = [], {}, {}, 0.0
+    for name, (B, T, H, hd, dtype, with_state), timed in RWKV_CASES:
+        r, k, v, w, u, s0 = _rwkv_inputs(gen, B, T, H, hd, dtype,
+                                         with_state)
+        with torch.no_grad():
+            out = rwkv6_scan(r, k, v, w, u, s0)
+            plain = rwkv6_scan_ref(r.float(), k.float(), v.float(),
+                                   w.float(), u, s0)
+            torch.cuda.synchronize()
+            reading = _scan_reading(out, plain)
+            check(_scan_ok(reading), f"rwkv6_scan {name}: {reading}")
+            again = rwkv6_scan(r, k, v, w, u, s0)
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"rwkv6_scan {name}: a rerun is not bitwise equal")
+        err_max = max(err_max, reading["max_abs_err"])
+        kept[name] = (r, k, v, w, u, s0, out, plain)
+        rows.append({"case": name, "B": B, "T": T, "H": H, "hd": hd,
+                     "dtype": str(dtype)[6:], "from_state": with_state,
+                     **reading})
+        if not timed:
+            continue
+        size = r.element_size()
+        nbytes = 5 * r.numel() * size + u.numel() * 4 + \
+            (2 if with_state else 1) * B * H * hd * hd * 4
+        # what the function needs a (b, t, h) step: o_j = sum_i r_i S_ij
+        # + v_j sum_i r_i u_i k_i (2 hd^2 + 5 hd), S_ij <- w_i S_ij +
+        # k_i v_j (3 hd^2)
+        flops = (5 * hd * hd + 5 * hd) * B * T * H
+        timings[name] = _scan_timings(
+            lambda: rwkv6_scan(r, k, v, w, u, s0),
+            lambda: rwkv6_scan_ref(r, k, v, w, u, s0),
+            T == 1, nbytes, flops)
+
+    # a split run: T1 steps, then the rest from the state they leave
+    r, k, v, w, u, s0, (o, s), _ = kept["prefill T=1326"]
+    T1 = r.shape[1] * 53 // 100
+    with torch.no_grad():
+        o1, s1 = rwkv6_scan(r[:, :T1], k[:, :T1], v[:, :T1], w[:, :T1], u)
+        o2, s2 = rwkv6_scan(r[:, T1:], k[:, T1:], v[:, T1:], w[:, T1:], u,
+                            s1)
+    split = torch.equal(torch.cat([o1, o2], 1), o) and torch.equal(s2, s)
+    check(split, f"rwkv6_scan: {T1} steps then the rest from the state "
+          f"differ from one run of {r.shape[1]}")
+    # the state written over the input state in place
+    r, k, v, w, u, s0, (o, s), _ = kept["decode B=8"]
+    s_in = s0.clone()
+    with torch.no_grad():
+        rwkv6_scan(r, k, v, w, u, s_in, state_out=s_in)
+    check(torch.equal(s_in, s), "rwkv6_scan: the in-place state differs")
+
+    r, k, v, w, u, s0, _, plain = kept["decode B=8"]
+    with torch.no_grad():
+        faults = {
+            "bonus u dropped": _scan_reading(
+                rwkv6_scan(r, k, v, w, torch.zeros_like(u), s0), plain),
+            "state updated before the output is read": _scan_reading(
+                _rwkv_update_first(r, k, v, w, u, s0), plain),
+            "input state ignored": _scan_reading(
+                rwkv6_scan(r, k, v, w, u), plain)}
+    for fault, reading in faults.items():
+        check(not _scan_ok(reading), f"planted fault '{fault}' passed the "
+              f"rwkv6_scan check: {reading}")
+    emit({"phase": "rwkv6_scan", "kernel": "rwkv6_scan",
+          "limit": f"{SCAN_ATOL} * max(1, |plain|max) + rtol * |plain|, "
+                   "element by element",
+          "rtol": {"float32": SCAN_RTOL[f32], "bfloat16": SCAN_RTOL[bf16]},
+          "cases": rows, "split_bitwise": split, "in_place": True,
+          "planted_faults": faults})
+    emit({"phase": "rwkv6_scan_times", "kernel": "rwkv6_scan",
+          "timings": timings})
+    main = timings["prefill T=1536"]
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6_scan/csrc/"
+                      "rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:59",
+            "max_abs_err": err_max,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "eager_ms": main["eager_ms"],
+            "at": {"shape": "rwkv6-1.6b prefill, B=1, T=1536, H=32, hd=64, "
+                            "float32 inputs",
+                   "ms": "device time per call, CUDA graph of 20 calls",
+                   "library": "none: no single PyTorch call computes "
+                              "this recurrence"},
+            "decode": timings["decode B=8"], "timings": timings}
+
+
+def _mamba_inputs(gen, B, T, D, N, dtype, with_state):
+    """The discretised inputs as the model makes them: a = exp(dt A)
+    with dt = softplus(N(0, 1)) and A = -(1 .. N), bx ~ 0.5 N(0, 1),
+    c ~ N(0, 1); a random h ~ N(0, 1)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    dt = torch.nn.functional.softplus(rand(B, T, D))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dt.device)
+    a = torch.exp(dt[..., None] * A)
+    bx, c = 0.5 * rand(B, T, D, N), rand(B, T, N)
+    h0 = rand(B, D, N) if with_state else None
+    return [x.to(dtype) for x in (a, bx, c)] + [h0]
+
+
+def _mamba_y_from_previous(a, bx, c, h0=None, *, h_out=None):
+    """A planted fault: y read from h_{t-1} (before the step's update),
+    y_t = h_{t-1} . c_t.  The kernel fed c shifted one step earlier
+    gives h_t . c_{t+1}, which is y_{t+1} of the fault."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    shifted = torch.cat([c[:, 1:], c[:, -1:]], 1)
+    y, h = mamba_scan(a, bx, shifted, h0, h_out=h_out)
+    first = torch.zeros_like(y[:, :1]) if h0 is None else torch.einsum(
+        "bdn,bn->bd", h0, c[:, 0].float())[:, None].to(y.dtype)
+    return torch.cat([first, y[:, :-1]], 1), h
+
+
+def _last_channel_short(out):
+    """A planted fault: the last channel tile one channel short, its
+    last channel's y and h never written (zero here)."""
+    y, h = (t.clone() for t in out)
+    y[..., -1] = 0
+    h[:, -1] = 0
+    return y, h
+
+
+# name, (B, T, D, N, dtype, from a state), timed (the serving path's
+# shape): jamba's prefill of the first and the longest prompt, a decode
+# step of 8 slots; then what the path does not run
+SPLIT_CASE = "N=8, D=1000 (a tile of 8 channels), B=2, T=300"
+TAIL_CASE = "D=8190 (the last tile 14 channels), T=64"
+MAMBA_CASES = [
+    ("prefill T=1326", (1, 1326, 8192, 16, torch.float32, False), True),
+    ("prefill T=1536", (1, 1536, 8192, 16, torch.float32, False), True),
+    ("decode B=8", (8, 1, 8192, 16, torch.float32, True), True),
+    (SPLIT_CASE, (2, 300, 1000, 8, torch.float32, True), False),
+    (TAIL_CASE, (1, 64, 8190, 16, torch.float32, True), False),
+    ("bf16 inputs, T=512, from a state",
+     (1, 512, 8192, 16, torch.bfloat16, True), False)]
+
+
+def phase_mamba_scan() -> dict:
+    """mamba_scan against its plain version; returns the kernel's record
+    for the kernels line (all but ``launches``)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    gen = torch.Generator().manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows, kept, timings, err_max = [], {}, {}, 0.0
+    for name, (B, T, D, N, dtype, with_state), timed in MAMBA_CASES:
+        a, bx, c, h0 = _mamba_inputs(gen, B, T, D, N, dtype, with_state)
+        with torch.no_grad():
+            out = mamba_scan(a, bx, c, h0)
+            plain = mamba_scan_ref(a.float(), bx.float(), c.float(), h0)
+            torch.cuda.synchronize()
+            reading = _scan_reading(out, plain)
+            check(_scan_ok(reading), f"mamba_scan {name}: {reading}")
+            again = mamba_scan(a, bx, c, h0)
+            check(all(torch.equal(x, y) for x, y in zip(out, again)),
+                  f"mamba_scan {name}: a rerun is not bitwise equal")
+        err_max = max(err_max, reading["max_abs_err"])
+        kept[name] = (a, bx, c, h0, out, plain)
+        rows.append({"case": name, "B": B, "T": T, "D": D, "N": N,
+                     "dtype": str(dtype)[6:], "from_state": with_state,
+                     **reading})
+        if not timed:
+            continue
+        size = a.element_size()
+        nbytes = (2 * a.numel() + c.numel() + B * T * D) * size + \
+            (2 if with_state else 1) * B * D * N * 4
+        timings[name] = _scan_timings(
+            lambda: mamba_scan(a, bx, c, h0),
+            lambda: mamba_scan_ref(a, bx, c, h0),
+            T == 1, nbytes, 4 * B * T * D * N)
+
+    a, bx, c, h0, (y, h), _ = kept[SPLIT_CASE]
+    T1 = a.shape[1] * 41 // 100
+    with torch.no_grad():
+        y1, h1 = mamba_scan(a[:, :T1], bx[:, :T1], c[:, :T1], h0)
+        y2, h2 = mamba_scan(a[:, T1:], bx[:, T1:], c[:, T1:], h1)
+    split = torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+    check(split, f"mamba_scan: {T1} steps then the rest from the state "
+          f"differ from one run of {a.shape[1]}")
+    a, bx, c, h0, (y, h), plain = kept["decode B=8"]
+    h_in = h0.clone()
+    with torch.no_grad():
+        mamba_scan(a, bx, c, h_in, h_out=h_in)
+    check(torch.equal(h_in, h), "mamba_scan: the in-place state differs")
+
+    with torch.no_grad():
+        a, bx, c, h0, _, plain = kept[SPLIT_CASE]
+        faults = {"y read from h_{t-1}": _scan_reading(
+            _mamba_y_from_previous(a, bx, c, h0), plain)}
+        a, bx, c, h0, _, plain = kept["decode B=8"]
+        faults["input h ignored"] = _scan_reading(mamba_scan(a, bx, c),
+                                                  plain)
+        a, bx, c, h0, out, plain = kept[TAIL_CASE]
+        faults["last channel tile short one channel"] = _scan_reading(
+            _last_channel_short(out), plain)
+    for fault, reading in faults.items():
+        check(not _scan_ok(reading), f"planted fault '{fault}' passed the "
+              f"mamba_scan check: {reading}")
+    emit({"phase": "mamba_scan", "kernel": "mamba_scan",
+          "limit": f"{SCAN_ATOL} * max(1, |plain|max) + rtol * |plain|, "
+                   "element by element",
+          "rtol": {"float32": SCAN_RTOL[f32], "bfloat16": SCAN_RTOL[bf16]},
+          "cases": rows, "split_bitwise": split, "in_place": True,
+          "planted_faults": faults})
+    emit({"phase": "mamba_scan_times", "kernel": "mamba_scan",
+          "timings": timings})
+    main = timings["prefill T=1536"]
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                      "mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:55",
+            "max_abs_err": err_max,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "eager_ms": main["eager_ms"],
+            "at": {"shape": "jamba-v0.1-52b prefill, B=1, T=1536, D=8192, "
+                            "N=16, float32 inputs",
+                   "ms": "device time per call, CUDA graph of 20 calls",
+                   "library": "none: no single PyTorch call computes "
+                              "this recurrence"},
+            "decode": timings["decode B=8"], "timings": timings}
+
+
+# ---------------------------------------------------------------------------
 def _round_one(pcfg, lane):
     """Round 1 of ``pcfg``'s training on ``lane`` from the weights and
     batches ``DeVertiFL.train`` draws first."""
@@ -932,7 +1330,7 @@ def _logit_readings(cfg, params, prompt, cache_len, device) -> dict:
         return attend
 
     def logits(attend):
-        return build_model(cfg, attend).prefill(
+        return build_model(cfg, attend=attend).prefill(
             params, batch, cache_len=cache_len)[0].flatten()
 
     plain = logits(flash_attention_ref)
@@ -950,13 +1348,26 @@ def _logit_readings(cfg, params, prompt, cache_len, device) -> dict:
             "fault_one_tile_rel_l2": rel(logits(cut(32)))}
 
 
-def _init_model(name):
-    """The architecture at full width and depth, random weights drawn on
-    the card from a seeded generator; checks the parameter count."""
+# every parameter of each served tree, as jax.eval_shape of the JAX
+# package's Model.init counts it at the same config (matrices, norms,
+# biases and vectors: more than ModelConfig.param_counts, which counts
+# matrices only and simplifies rwkv6 and Mamba); (arch, layers) -> count
+SERVED_PARAMS = {("qwen2-7b", 28): 7_615_616_512,
+                 ("deepseek-moe-16b", 28): 16_375_728_128,
+                 ("rwkv6-1.6b", 24): 1_584_091_136,
+                 ("jamba-v0.1-52b", 16): 26_053_480_448}
+
+
+def _init_model(name, num_layers=None):
+    """The architecture at full width (and depth, unless ``num_layers``
+    cuts it), random weights drawn on the card from a seeded generator;
+    checks the parameter count."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves
     cfg = get_config(name)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -965,10 +1376,9 @@ def _init_model(name):
     setup_s = time.perf_counter() - t0
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
-    # both vocabularies (152064, 102400) are multiples of 128: the padded
-    # vocab is the config's
-    check(n_params == cfg.param_counts()["total"] +
-          _norm_and_bias_params(cfg), f"{name} has {n_params} parameters")
+    want = SERVED_PARAMS[cfg.name, cfg.num_layers]
+    check(n_params == want, f"{name} at {cfg.num_layers} layers has "
+          f"{n_params} parameters, not {want}")
     return cfg, model, params, {
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "heads": [cfg.num_heads, cfg.num_kv_heads],
@@ -1008,11 +1418,12 @@ def _counted_serve(cfg, model, params, prompts, per_layer):
     once per such layer per prefill and decode step, and that no other
     kernel launched.  Then a rerun, whose tokens must be bitwise equal.
     Returns (launches, engine counts, tokens, timings, peak bytes)."""
-    from repro_torch.kernels import vfl_matmul_clients
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_router import moe_router
+    from repro_torch.kernels import (
+        flash_attention, mamba_scan, moe_router, rwkv6_scan,
+        vfl_matmul_clients)
     wrappers = {"vfl_matmul": vfl_matmul_clients,
-                "flash_attention": flash_attention, "moe_router": moe_router}
+                "flash_attention": flash_attention, "moe_router": moe_router,
+                "rwkv6_scan": rwkv6_scan, "mamba_scan": mamba_scan}
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
@@ -1201,12 +1612,210 @@ def phase_serve_moe(router_row, attn_row) -> None:
                                                           prompts)})
 
 
-def _norm_and_bias_params(cfg):
-    """What the weight tree holds beyond ``param_counts`` (which counts
-    matrices only): the norm scales and the q/k/v biases."""
-    per_layer = 2 * cfg.d_model + (cfg.num_heads + 2 * cfg.num_kv_heads) * \
-        cfg.head_dim * cfg.qkv_bias
-    return cfg.num_layers * per_layer + cfg.d_model
+def _release() -> int:
+    """Frees what the previous phase's model held on the card; returns
+    the bytes still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _summary(rs) -> dict:
+    return {"calls": len(rs),
+            "excess": max(r["excess"] for r in rs),
+            "state_excess": max(r["state_excess"] for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ok": all(_scan_ok(r) for r in rs)}
+
+
+def _scan_checks(cfg, params, prompt, hook, kernel, plain, faults,
+                 logit_fault) -> dict:
+    """The prompt's prefill with every layer's scan held against the
+    plain version on the same inputs (the run goes on with the kernel's
+    output), and each planted fault read the same way; then its
+    last-token logits against a prefill through the plain version,
+    |diff| over |plain| (L2 over the vocabulary), and the same reading
+    for the prefill through the fault named ``logit_fault``."""
+    from repro_torch.models import build_model
+    readings = {"kernel": [], **{name: [] for name in faults}}
+
+    def checked(*args, **kw):
+        out = kernel(*args, **kw)
+        want = plain(*args)
+        readings["kernel"].append(_scan_reading(out, want))
+        for name, fault in faults.items():
+            readings[name].append(_scan_reading(fault(*args), want))
+        return out
+
+    batch = {"tokens": torch.tensor([prompt], device=DEVICE)}
+
+    def logits(fn):
+        with torch.no_grad():
+            return build_model(cfg, **{hook: fn}).prefill(
+                params, batch, cache_len=CACHE_LEN)[0].flatten()
+    got = logits(checked)
+    want = logits(plain)
+    bad = logits(faults[logit_fault])
+
+    def rel(x):
+        return float((x - want).norm() / want.norm())
+    return {"prompt_tokens": len(prompt),
+            **{name: _summary(rs) for name, rs in readings.items()},
+            "logits_rel_l2": rel(got), "logits_max_abs": max_err(got, want),
+            "logits_max_abs_plain": float(want.abs().max()),
+            "same_top1": int(got.argmax()) == int(want.argmax()),
+            "finite": bool(torch.isfinite(got).all()),
+            "logit_fault": logit_fault, "fault_logits_rel_l2": rel(bad)}
+
+
+def _carry_readings(model, params, prompt, mixer, leaf) -> dict:
+    """The state carry: prefill(prompt[:n]) then one decode step of
+    prompt[n] against prefill(prompt[:n + 1]), |diff| over |plain| (L2)
+    on the last logits and on every recurrent layer's state (the
+    largest); then the same with the decode starting from a zeroed
+    recurrent state."""
+    n = len(prompt) - 1
+    toks = torch.tensor([prompt], device=DEVICE)
+
+    def states(st):
+        return [t[g] for sub in st["cache"]["scanned"].values()
+                if mixer in sub for t in (sub[mixer][leaf],)
+                for g in range(t.shape[0])]
+    with torch.no_grad():
+        want, want_st = model.prefill(params, {"tokens": toks},
+                                      cache_len=CACHE_LEN)
+        out = {"prompt_tokens": n + 1, "state": f"{mixer}.{leaf}"}
+        for name, zero in (("carried", False), ("zeroed state", True)):
+            _, st = model.prefill(params, {"tokens": toks[:, :n]},
+                                  cache_len=CACHE_LEN)
+            if zero:
+                for t in states(st):
+                    t.zero_()
+            logits, st = model.decode_step(params, st, toks[:, n:n + 1])
+            out[name] = {
+                "logits_rel_l2": float((logits - want).norm() /
+                                       want.norm()),
+                "state_rel_l2": max(float((a - b).norm() / b.norm())
+                                    for a, b in zip(states(st),
+                                                    states(want_st))),
+                "layers": len(states(st))}
+    return out
+
+
+def carry_ok(r) -> bool:
+    return r["logits_rel_l2"] <= CARRY_LOGIT_RTOL and \
+        r["state_rel_l2"] <= CARRY_STATE_RTOL
+
+
+def _ssm_checks(name, scans, carry, faults) -> None:
+    check(scans["kernel"]["ok"], f"{name} prefill scans, kernel vs plain: "
+          f"{scans['kernel']}")
+    check(scans["finite"], f"{name} prefill logits not finite")
+    for fault in faults:
+        check(not scans[fault]["ok"], f"planted fault '{fault}' passed the "
+              f"{name} scan check: {scans[fault]}")
+    check(scans["logits_rel_l2"] <= SSM_LOGIT_RTOL,
+          f"{name} prefill logits, kernel vs plain scan: |diff| / |plain| "
+          f"= {scans['logits_rel_l2']} > {SSM_LOGIT_RTOL}")
+    check(scans["fault_logits_rel_l2"] > SSM_LOGIT_RTOL,
+          f"planted fault '{scans['logit_fault']}' passed the {name} logits "
+          f"check: {scans['fault_logits_rel_l2']} <= {SSM_LOGIT_RTOL}")
+    check(carry_ok(carry["carried"]), f"{name} state carry: "
+          f"{carry['carried']}")
+    check(not carry_ok(carry["zeroed state"]), f"planted fault (decode "
+          f"from a zeroed state) passed the {name} carry check: "
+          f"{carry['zeroed state']}")
+
+
+def phase_serve_rwkv(rwkv_row) -> None:
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_ref
+    held = _release()
+    cfg, model, params, info = _init_model("rwkv6-1.6b")
+    n_rwkv = sum(kind["mixer"] == "rwkv" for kind in model.kinds)
+    check(n_rwkv == 24, f"rwkv6-1.6b has {n_rwkv} RWKV layers")
+    prompts = _prompts(cfg)
+    launches, counts, _, t, peak = _counted_serve(
+        cfg, model, params, prompts, {"rwkv6_scan": n_rwkv})
+
+    def no_bonus(r, k, v, w, u, state=None, *, state_out=None):
+        return rwkv6_scan(r, k, v, w, torch.zeros_like(u), state,
+                          state_out=state_out)
+    faults = {"bonus u dropped": no_bonus}
+    scans = _scan_checks(cfg, params, prompts[0], "wkv", rwkv6_scan,
+                         rwkv6_scan_ref, faults, "bonus u dropped")
+    carry = _carry_readings(model, params, prompts[0], "rwkv", "wkv")
+    emit({"phase": "serve_rwkv_checks", "logits_rtol": SSM_LOGIT_RTOL,
+          "carry_rtol": {"logits": CARRY_LOGIT_RTOL,
+                         "state": CARRY_STATE_RTOL},
+          "scans": scans, "carry": carry})
+    _ssm_checks("rwkv6-1.6b", scans, carry, faults)
+
+    rwkv_row["launches"] = launches["rwkv6_scan"]
+    emit({"phase": "serve_rwkv", **info, "rwkv_layers": n_rwkv,
+          "allocated_before_gb": held / 1e9, "serve_peak_gb": peak / 1e9,
+          **counts, "rwkv6_scan_launches": launches["rwkv6_scan"],
+          **_serve_metrics(prompts, t),
+          "logits_kernel_vs_plain_rel_l2": scans["logits_rel_l2"],
+          "carry_logits_rel_l2": carry["carried"]["logits_rel_l2"]})
+    emit({"phase": "serve_rwkv_profile", **_serve_profiles(model, params,
+                                                           prompts)})
+
+
+# jamba-v0.1-52b at 16 of its 32 layers: the full depth holds
+# 51,570,085,888 parameters, 103.15 GB in bf16, over the card's 80 GB;
+# 16 layers are two of its four 8-layer periods (26,053,480,448
+# parameters, 52.11 GB), so every layer kind keeps its share
+JAMBA_LAYERS = 16
+
+
+def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    held = _release()
+    cfg, model, params, info = _init_model("jamba-v0.1-52b", JAMBA_LAYERS)
+    kinds = model.kinds
+    n_mamba = sum(kind["mixer"] == "mamba" for kind in kinds)
+    n_attn = sum(kind["mixer"] == "attn" for kind in kinds)
+    n_moe = sum(kind["ffn"] == "moe" for kind in kinds)
+    check((n_mamba, n_attn, n_moe) == (14, 2, 8),
+          f"jamba at {JAMBA_LAYERS} layers: {n_mamba} Mamba, {n_attn} "
+          f"attention, {n_moe} MoE layers")
+    prompts = _prompts(cfg)
+    launches, counts, _, t, peak = _counted_serve(
+        cfg, model, params, prompts,
+        {"mamba_scan": n_mamba, "flash_attention": n_attn,
+         "moe_router": n_moe})
+
+    def short(a, bx, c, h0=None, *, h_out=None):
+        return _last_channel_short(mamba_scan(a, bx, c, h0, h_out=h_out))
+    faults = {"y read from h_{t-1}": _mamba_y_from_previous,
+              "last channel tile short one channel": short}
+    scans = _scan_checks(cfg, params, prompts[0], "sscan", mamba_scan,
+                         mamba_scan_ref, faults, "y read from h_{t-1}")
+    carry = _carry_readings(model, params, prompts[0], "mamba", "h")
+    emit({"phase": "serve_hybrid_checks", "logits_rtol": SSM_LOGIT_RTOL,
+          "carry_rtol": {"logits": CARRY_LOGIT_RTOL,
+                         "state": CARRY_STATE_RTOL},
+          "scans": scans, "carry": carry})
+    _ssm_checks("jamba-v0.1-52b", scans, carry, faults)
+
+    mamba_row["launches"] = launches["mamba_scan"]
+    attn_row["launches_serve_hybrid"] = launches["flash_attention"]
+    router_row["launches_serve_hybrid"] = launches["moe_router"]
+    emit({"phase": "serve_hybrid", **info,
+          "cut": f"{JAMBA_LAYERS} of 32 layers (103.15 GB of bf16 weights "
+                 "at full depth do not fit 80 GB)",
+          "layers_by_kind": {"mamba": n_mamba, "attention": n_attn,
+                             "moe": n_moe},
+          "allocated_before_gb": held / 1e9, "serve_peak_gb": peak / 1e9,
+          **counts, "mamba_scan_launches": launches["mamba_scan"],
+          "flash_attention_launches": launches["flash_attention"],
+          "moe_router_launches": launches["moe_router"],
+          **_serve_metrics(prompts, t),
+          "logits_kernel_vs_plain_rel_l2": scans["logits_rel_l2"],
+          "carry_logits_rel_l2": carry["carried"]["logits_rel_l2"]})
+    emit({"phase": "serve_hybrid_profile", **_serve_profiles(model, params,
+                                                             prompts)})
 
 
 def main() -> None:
@@ -1215,6 +1824,8 @@ def main() -> None:
     kernel_row = phase_kernel()
     attn_row = phase_attn_kernel()
     router_row = phase_moe_router()
+    rwkv_row = phase_rwkv6_scan()
+    mamba_row = phase_mamba_scan()
     from repro_torch.core.protocol import ProtocolConfig
     pcfg = ProtocolConfig(dataset="mnist", n_clients=5, n_samples=70000,
                           rounds=2, epochs=1, batch_size=64)
@@ -1222,7 +1833,10 @@ def main() -> None:
     phase_profile(pcfg.replace(n_samples=4000))
     phase_serve(attn_row)
     phase_serve_moe(router_row, attn_row)
-    emit({"kernels": [kernel_row, attn_row, router_row]})
+    phase_serve_rwkv(rwkv_row)
+    phase_serve_hybrid(mamba_row, attn_row, router_row)
+    emit({"kernels": [kernel_row, attn_row, router_row, rwkv_row,
+                      mamba_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
 

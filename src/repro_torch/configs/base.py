@@ -3,7 +3,8 @@ ModelConfig, registered under its --arch id.  The port's copy of
 ``repro.configs.base``: the dataclasses, ``param_counts`` and the input
 shapes are the reference's, field for field.
 
-The port registers the dense and MoE families (``configs/__init__.py``).
+The port registers the dense, MoE, ssm and hybrid families
+(``configs/__init__.py``).
 ``get_config`` also answers the paper's MLP names with their
 ``MLPConfig`` (``configs/paper_mlp.py``), as the reference's one
 registry does, and raises NotImplementedError for an architecture of a
@@ -194,9 +195,8 @@ class ModelConfig:
 _REGISTRY: dict = {}
 
 # the reference's architectures of the families not ported yet
-# (ssm, hybrid, vlm, audio)
-UNPORTED = ("rwkv6-1.6b", "jamba-v0.1-52b", "llava-next-34b",
-            "seamless-m4t-medium")
+# (vlm, audio)
+UNPORTED = ("llava-next-34b", "seamless-m4t-medium")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -215,8 +215,8 @@ def get_config(name: str):
     if name in UNPORTED:
         raise NotImplementedError(
             f"arch {name!r} belongs to a family repro_torch does not run "
-            "yet (only the dense and MoE families); see ROADMAP.md, Queue 1 "
-            "item 10")
+            "yet (only the dense, MoE, ssm and hybrid families); see "
+            "ROADMAP.md, Queue 1 item 10")
     raise KeyError(f"unknown arch {name!r}; known: {list_configs()}")
 
 

@@ -1,8 +1,9 @@
-"""Reduced variants of the dense and MoE architectures for CPU tests: 2
-layers, d_model 256, <=4 experts, tiny vocab, float32.  Same code paths
-as the full configs.  The port's copy of ``repro.configs.reduced``, cut
-to the branches the dense and MoE families take (the SSM, hybrid and
-modality branches come with those families)."""
+"""Reduced variants of the dense, MoE, ssm and hybrid architectures for
+CPU tests: 2 layers (the hybrid 4, one attention layer per period of
+2), d_model 256, <=4 experts, tiny vocab, float32.  Same code paths as
+the full configs.  The port's copy of ``repro.configs.reduced``, cut to
+the branches those families take (the modality branches come with the
+vlm and audio families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, get_config
@@ -31,6 +32,13 @@ def reduced_config(name: str, **extra) -> ModelConfig:
             kw.update(num_shared_experts=1)
         if cfg.first_layer_dense_ff:
             kw.update(first_layer_dense_ff=256)
+    if cfg.ssm_type == "rwkv6":
+        kw.update(num_heads=4, num_kv_heads=4, rwkv_head_dim=64, d_ff=512)
+    if cfg.family == "hybrid":
+        kw.update(num_layers=4, attn_layer_period=2, attn_layer_offset=1,
+                  num_experts=4, num_experts_per_tok=2, moe_every=2,
+                  moe_offset=1, moe_d_ff=128, ssm_state_dim=8,
+                  expert_capacity_factor=8.0)
     if cfg.attn_type in ("swa", "local_global"):
         kw.update(window_size=16)
     if cfg.num_heads and cfg.num_heads == cfg.num_kv_heads:

@@ -25,7 +25,9 @@ BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
 # kernel name -> source, relative to this package
 SOURCES = {"vfl_matmul": "vfl_matmul/csrc/vfl_matmul.cu",
            "flash_attention": "flash_attention/csrc/flash_attention.cu",
-           "moe_router": "moe_router/csrc/moe_router.cu"}
+           "moe_router": "moe_router/csrc/moe_router.cu",
+           "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
+           "mamba_scan": "mamba_scan/csrc/mamba_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

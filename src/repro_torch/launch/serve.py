@@ -1,15 +1,16 @@
 """Serving entry point: batched single-token decode against a KV
 cache.  The port of ``repro.launch.serve``.
 
-Any architecture of the dense or MoE family (``--arch qwen2-7b``,
-``--arch deepseek-moe-16b``; mixtral-8x22b does not fit one card at full
-size).  On the GPU, at full width with random weights::
+Any architecture of the dense, MoE, ssm or hybrid family (``--arch
+qwen2-7b``, ``--arch deepseek-moe-16b``, ``--arch rwkv6-1.6b``, ``--arch
+jamba-v0.1-52b``; mixtral-8x22b and the full 32-layer jamba do not fit
+one card).  On the GPU, at full width with random weights::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 On the CPU, at the reduced size::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --device cpu --reduced
 """
 from __future__ import annotations

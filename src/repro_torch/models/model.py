@@ -1,5 +1,6 @@
 """Top-level Model: config -> init / forward / prefill / decode.  The
-port of ``repro.models.model`` for the dense and MoE families.  The paper's MLPs
+port of ``repro.models.model`` for the decoder-only text families
+(dense, MoE, ssm, hybrid).  The paper's MLPs
 run through ``PaperMLP`` (stacked clients), which the federation builds
 itself.
 
@@ -9,12 +10,15 @@ cross over by key (``repro_torch.interop``).  Everything here is
 forward-only, under ``torch.no_grad()``: the LM's training path
 (``launch/train.py``) is not ported yet.
 
-``attend`` is the attention function every layer calls, with
+The kernel hooks, keyword arguments of ``Model`` and ``build_model``:
+``attend`` is the attention function every attention layer calls, with
 ``flash_attention``'s signature (None: ``flash_attention``, the kernel
-on CUDA tensors); ``route`` is the router every MoE layer calls, with
-``moe_router``'s signature (None: ``moe_router``, the kernel on CUDA
-tensors).  ``chip_smoke.py`` passes the plain versions, and planted
-faults, to read the kernels' effect on the logits and the routes.
+on CUDA tensors); ``route`` the router every MoE layer calls
+(None: ``moe_router``); ``wkv`` the WKV scan every RWKV6 time mix calls
+(None: ``rwkv6_scan``); ``sscan`` the selective scan every Mamba mixer
+calls (None: ``mamba_scan``).  ``chip_smoke.py`` passes the plain
+versions, and planted faults, to read the kernels' effect on the logits
+and the routes.
 """
 from __future__ import annotations
 
@@ -31,15 +35,17 @@ def padded_vocab(v: int) -> int:
 class Model:
     """Decoder-only LM assembled from a ModelConfig."""
 
-    def __init__(self, cfg, attend=None, route=None):
+    def __init__(self, cfg, **hooks):
         if cfg.is_encoder_decoder or cfg.modality != "text":
             raise T._unported(f"the {cfg.family!r} family ({cfg.name})")
         self.cfg = cfg
         self.dtype = L.dtype_of(cfg.dtype)
         self.kinds = T.layer_kinds(cfg)
         self.vocab = padded_vocab(cfg.vocab_size)
-        self.attend = attend
-        self.route = route
+        unknown = set(hooks) - {"attend", "route", "wkv", "sscan"}
+        if unknown:
+            raise TypeError(f"unknown kernel hooks: {sorted(unknown)}")
+        self.hooks = hooks
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -75,7 +81,7 @@ class Model:
         h = T.embed_input(params, tokens, cfg)
         positions = self._positions(h.shape[1], h.device)
         h, aux = T.stack_apply(params["stack"], h, positions, cfg,
-                               self.kinds, self.attend, self.route)
+                               self.kinds, self.hooks)
         h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
         return T.logits_from_hidden(params, h, cfg), aux
 
@@ -96,7 +102,7 @@ class Model:
         positions = self._positions(S_total, h.device)
         h, cache = T.stack_prefill(params["stack"], h, positions, cfg,
                                    self.kinds, B, cache_len, self.dtype,
-                                   self.attend, self.route)
+                                   self.hooks)
         h = L.apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm_type)
         logits = T.logits_from_hidden(params, h, cfg)
         state = {"cache": cache,
@@ -126,7 +132,7 @@ class Model:
         pos = state["position"]
         h, new_cache = T.stack_decode(params["stack"], h, pos, cfg,
                                       self.kinds, state["cache"],
-                                      self.attend, self.route)
+                                      self.hooks)
         h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
         logits = T.logits_from_hidden(params, h, cfg)
         new_state = dict(state)
@@ -135,9 +141,9 @@ class Model:
         return logits, new_state
 
 
-def build_model(cfg, attend=None, route=None):
+def build_model(cfg, **hooks):
     if getattr(cfg, "family", "mlp") == "mlp":
         raise ValueError(
             f"{cfg.name} is a paper MLP: repro_torch runs it through "
             "repro_torch.models.PaperMLP (stacked clients), not Model")
-    return Model(cfg, attend, route)
+    return Model(cfg, **hooks)

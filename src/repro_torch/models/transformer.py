@@ -1,8 +1,9 @@
 """Decoder stacks assembled from a ModelConfig: the port of
-``repro.models.transformer`` for the attention mixer and the dense,
-layer-0 dense (``dense0``) and MoE FFNs (the dense and MoE families).
-Mamba, RWKV and cross-attention kinds raise NotImplementedError
-(ROADMAP.md, Queue 1 item 10).
+``repro.models.transformer`` for the decoder-only text families: the
+attention, Mamba and RWKV6 mixers, and the dense, layer-0 dense
+(``dense0``), MoE and RWKV channel-mix (``rwkv_cm``) FFNs (the dense,
+MoE, ssm and hybrid families).  Cross attention (the encoder-decoder
+audio family) raises NotImplementedError (ROADMAP.md, Queue 1 item 10).
 
 Layer stacks keep the reference's (prefix, periodic-group) form and its
 parameter tree: the periodic part lives under ``"scanned"`` with a
@@ -15,11 +16,16 @@ the plain lookup of the reference without a client mesh.  The
 multi-client ``exchange_features`` path (``shard_map`` over the
 embedding's client-sharded d_model) is not ported yet.
 
-``attend`` (block and stack functions) is the attention function,
-passed through to ``models.attention`` (None: ``flash_attention``), and
-``route`` the router function, passed through to ``models.moe`` (None:
-``moe_router``).  The MoE load-balance loss is summed over the stack by
-``stack_apply``, as in the reference; prefill and decode drop it.
+``hooks`` (block and stack functions) holds the functions that stand
+in for the kernels, each under its keyword and None for the kernel:
+``attend`` (``models.attention``; ``flash_attention``), ``route``
+(``models.moe``; ``moe_router``), ``wkv`` and ``sscan``
+(``models.ssm``; ``rwkv6_scan`` and ``mamba_scan``).  The MoE
+load-balance loss is summed over the stack by ``stack_apply``, as in
+the reference; prefill and decode drop it.
+
+Decode writes every layer's cache in place: the attention ring, the
+RWKV state and token-shift rows, the Mamba state and conv history.
 """
 from __future__ import annotations
 
@@ -28,13 +34,14 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.tree import tree_map
 
 
 def _unported(what):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (only the dense and MoE "
-        "families: attention mixers, dense and MoE FFNs); see ROADMAP.md, "
+        f"{what} is not ported to repro_torch yet (only the decoder-only "
+        "text families: dense, MoE, ssm and hybrid); see ROADMAP.md, "
         "Queue 1 item 10")
 
 
@@ -84,10 +91,14 @@ def periodic_split(kinds):
     return n, 1
 
 
+_MIXERS = ("attn", "mamba", "rwkv")
+_FFNS = ("dense", "dense0", "moe", "rwkv_cm")
+
+
 def _check_kind(kind):
-    if kind["mixer"] != "attn":
+    if kind["mixer"] not in _MIXERS:
         raise _unported(f"the {kind['mixer']!r} mixer")
-    if kind["ffn"] not in ("dense", "dense0", "moe"):
+    if kind["ffn"] not in _FFNS:
         raise _unported(f"the {kind['ffn']!r} FFN")
     if kind["cross"]:
         raise _unported("cross attention (encoder-decoder)")
@@ -99,79 +110,127 @@ def _check_kind(kind):
 def block_init(generator, cfg, kind, dtype):
     _check_kind(kind)
     D, dev = cfg.d_model, generator.device
-    p = {"pre_norm": L.norm_init(D, cfg.norm_type, dev),
-         "attn": A.attn_init(generator, cfg, dtype),
-         "ffn_norm": L.norm_init(D, cfg.norm_type, dev)}
+    p = {"pre_norm": L.norm_init(D, cfg.norm_type, dev)}
+    if kind["mixer"] == "attn":
+        p["attn"] = A.attn_init(generator, cfg, dtype)
+    elif kind["mixer"] == "mamba":
+        p.update(S.mamba_init(generator, cfg, dtype))
+    elif kind["mixer"] == "rwkv":
+        p.update(S.rwkv_init(generator, cfg, dtype))
+    p["ffn_norm"] = L.norm_init(D, cfg.norm_type, dev)
     if kind["ffn"] == "moe":
         p["moe"] = M.moe_init(generator, cfg, dtype)
-    else:
+    elif kind["ffn"] in ("dense", "dense0"):
         width = cfg.first_layer_dense_ff if kind["ffn"] == "dense0" \
             else cfg.d_ff
         p["ffn"] = L.mlp_init(generator, D, width, cfg.act, dtype)
     return p
 
 
-def _ffn(p, h2, cfg, kind, route, with_aux=False):
-    """The block's FFN on its normed input: (y, aux or None)."""
+def _ffn(p, h2, cfg, kind, hooks, with_aux=False, x_prev=None):
+    """The block's FFN on its normed input: (y, aux or None).
+    ``x_prev`` is the RWKV channel mix's previous token (None: zeros)."""
+    if kind["ffn"] == "rwkv_cm":
+        return S.rwkv_channel_mix(p, h2, cfg, x_prev=x_prev), None
     if kind["ffn"] == "moe":
-        return M.moe_apply(p["moe"], h2, cfg, route, with_aux)
+        return M.moe_apply(p["moe"], h2, cfg, hooks.get("route"), with_aux)
     return L.mlp_apply(p["ffn"], h2, cfg.act), None
 
 
-def block_apply(p, x, positions, cfg, kind, attend=None, route=None):
+def block_apply(p, x, positions, cfg, kind, hooks=None):
     """Full-sequence block. Returns (x, aux_loss); aux is 0 without MoE."""
     _check_kind(kind)
+    hooks = hooks or {}
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
-    x = x + A.attn_apply(p["attn"], h, positions, cfg,
+    if kind["mixer"] == "attn":
+        y = A.attn_apply(p["attn"], h, positions, cfg,
                          layer_window=kind["window"],
-                         causal=kind.get("causal", True), attend=attend)
+                         causal=kind.get("causal", True),
+                         attend=hooks.get("attend"))
+    elif kind["mixer"] == "mamba":
+        y = S.mamba_apply(p, h, cfg, sscan=hooks.get("sscan"))
+    elif kind["mixer"] == "rwkv":
+        y = S.rwkv_time_mix(p, h, cfg, wkv=hooks.get("wkv"))
+    x = x + y
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    y, aux = _ffn(p, h2, cfg, kind, route, with_aux=True)
+    y, aux = _ffn(p, h2, cfg, kind, hooks, with_aux=True)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
 
 def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
-                  attend=None, route=None):
+                  hooks=None):
     """Full-sequence forward that also emits the decode cache for this
     block (forward-only: the inference-prefill path)."""
     _check_kind(kind)
+    hooks = hooks or {}
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
-    y, (k, v) = A.attn_apply(p["attn"], h, positions, cfg,
-                             layer_window=kind["window"],
-                             causal=kind.get("causal", True),
-                             return_kv=True, attend=attend)
+    cache = {}
+    if kind["mixer"] == "attn":
+        y, (k, v) = A.attn_apply(p["attn"], h, positions, cfg,
+                                 layer_window=kind["window"],
+                                 causal=kind.get("causal", True),
+                                 return_kv=True, attend=hooks.get("attend"))
+        empty = A.init_cache(cfg, batch,
+                             min(cache_len, kind["window"])
+                             if kind["window"] else cache_len,
+                             kind["window"], dtype, x.device)
+        cache["attn"] = A.fill_cache_from_prefill(empty, k, v, positions,
+                                                  batch)
+    elif kind["mixer"] == "mamba":
+        y, cache["mamba"] = S.mamba_apply(p, h, cfg, return_state=True,
+                                          sscan=hooks.get("sscan"))
+    elif kind["mixer"] == "rwkv":
+        # the normed last rows: what decode's token shift reads
+        y, cache["rwkv"] = S.rwkv_time_mix(p, h, cfg, return_state=True,
+                                           wkv=hooks.get("wkv"))
     x = x + y
-    empty = A.init_cache(cfg, batch,
-                         min(cache_len, kind["window"])
-                         if kind["window"] else cache_len,
-                         kind["window"], dtype, x.device)
-    cache = {"attn": A.fill_cache_from_prefill(empty, k, v, positions,
-                                               batch)}
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + _ffn(p, h2, cfg, kind, route)[0], cache
+    if kind["ffn"] == "rwkv_cm":
+        cache["rwkv"]["x_prev_cm"] = h2[:, -1, :].clone()
+    return x + _ffn(p, h2, cfg, kind, hooks)[0], cache
 
 
 def block_init_cache(cfg, kind, batch, seq_len, dtype, device=None):
     _check_kind(kind)
-    return {"attn": A.init_cache(cfg, batch, seq_len, kind["window"], dtype,
-                                 device)}
+    if kind["mixer"] == "attn":
+        return {"attn": A.init_cache(cfg, batch, seq_len, kind["window"],
+                                     dtype, device)}
+    if kind["mixer"] == "mamba":
+        return {"mamba": S.mamba_init_state(cfg, batch, dtype, device)}
+    if kind["mixer"] == "rwkv":
+        return {"rwkv": S.rwkv_init_state(cfg, batch, dtype, device)}
 
 
-def block_decode(p, x, position, cfg, kind, cache, attend=None,
-                 route=None):
+def block_decode(p, x, position, cfg, kind, cache, hooks=None):
     """One-token decode. Returns (x, cache), the cache written in
     place."""
     _check_kind(kind)
+    hooks = hooks or {}
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
     new_cache = dict(cache)
-    y, new_cache["attn"] = A.attn_decode(
-        p["attn"], h, position, cache["attn"], cfg,
-        layer_window=kind["window"], attend=attend)
+    if kind["mixer"] == "attn":
+        y, new_cache["attn"] = A.attn_decode(
+            p["attn"], h, position, cache["attn"], cfg,
+            layer_window=kind["window"], attend=hooks.get("attend"))
+    elif kind["mixer"] == "mamba":
+        y, new_cache["mamba"] = S.mamba_decode(p, h, cache["mamba"], cfg,
+                                               sscan=hooks.get("sscan"))
+    elif kind["mixer"] == "rwkv":
+        st = cache["rwkv"]
+        y = S.rwkv_time_mix(p, h, cfg, x_prev=st["x_prev_tm"],
+                            state=st["wkv"], state_out=st["wkv"],
+                            wkv=hooks.get("wkv"))
+        st["x_prev_tm"].copy_(h[:, -1, :])
     x = x + y
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + _ffn(p, h2, cfg, kind, route)[0], new_cache
+    st = cache.get("rwkv")
+    y = _ffn(p, h2, cfg, kind, hooks,
+             x_prev=st["x_prev_cm"] if st is not None else None)[0]
+    if st is not None:
+        st["x_prev_cm"].copy_(h2[:, -1, :])
+    return x + y, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +251,14 @@ class StackLayout:
 
 def _stacked(make, n):
     """``make(g)`` for g < n as one tree with a leading [n] axis on
-    every leaf, filled group by group so that only one group's tree is
-    ever held twice."""
+    every leaf, filled one ``make`` at a time, so that beside the stack
+    only one made tree is ever held."""
     first = make(0)
     out = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
-    for g in range(n):
-        tree_map(lambda dst, src: dst[g].copy_(src), out,
-                 first if g == 0 else make(g))
+    tree_map(lambda dst, src: dst[0].copy_(src), out, first)
+    del first
+    for g in range(1, n):
+        tree_map(lambda dst, src: dst[g].copy_(src), out, make(g))
     return out
 
 
@@ -213,25 +273,30 @@ def stack_init(generator, cfg, kinds, dtype):
     for i in range(layout.prefix):
         params[f"layer_{i}"] = block_init(generator, cfg, kinds[i], dtype)
     if layout.n_groups:
-        params["scanned"] = _stacked(
-            lambda _: {f"sub_{j}": block_init(generator, cfg, kind, dtype)
-                       for j, kind in enumerate(layout.group_kinds)},
-            layout.n_groups)
+        # stacked one layer at a time: a jamba group (8 layers) is 26 GB
+        # of bf16, more than the card holds beside the stack twice.  The
+        # draws run sub by sub, each over the groups; with a period of
+        # one (qwen2, deepseek-moe, rwkv6) that is the layers' own order
+        params["scanned"] = {
+            f"sub_{j}": _stacked(
+                lambda _, kind=kind: block_init(generator, cfg, kind, dtype),
+                layout.n_groups)
+            for j, kind in enumerate(layout.group_kinds)}
     return params
 
 
-def stack_apply(params, x, positions, cfg, kinds, attend=None, route=None):
+def stack_apply(params, x, positions, cfg, kinds, hooks=None):
     layout = StackLayout(cfg, kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(layout.prefix):
         x, a = block_apply(params[f"layer_{i}"], x, positions, cfg, kinds[i],
-                           attend, route)
+                           hooks)
         aux = aux + a
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         for j, kind in enumerate(layout.group_kinds):
             x, a = block_apply(gparams[f"sub_{j}"], x, positions, cfg, kind,
-                               attend, route)
+                               hooks)
             aux = aux + a
     return x, aux
 
@@ -252,13 +317,13 @@ def stack_init_cache(cfg, kinds, batch, seq_len, dtype, device=None):
 
 
 def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
-                  dtype, attend=None, route=None):
+                  dtype, hooks=None):
     layout = StackLayout(cfg, kinds)
     cache = {}
     for i in range(layout.prefix):
         x, cache[f"layer_{i}"] = block_prefill(
             params[f"layer_{i}"], x, positions, cfg, kinds[i], batch,
-            cache_len, dtype, attend, route)
+            cache_len, dtype, hooks)
     groups = []
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
@@ -266,28 +331,27 @@ def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
         for j, kind in enumerate(layout.group_kinds):
             x, newc[f"sub_{j}"] = block_prefill(
                 gparams[f"sub_{j}"], x, positions, cfg, kind, batch,
-                cache_len, dtype, attend, route)
+                cache_len, dtype, hooks)
         groups.append(newc)
     if groups:
         cache["scanned"] = tree_map(lambda *xs: torch.stack(xs), *groups)
     return x, cache
 
 
-def stack_decode(params, x, position, cfg, kinds, cache, attend=None,
-                 route=None):
+def stack_decode(params, x, position, cfg, kinds, cache, hooks=None):
     """One-token decode over the stack; every layer's cache is written
     in place and ``cache`` is returned."""
     layout = StackLayout(cfg, kinds)
     for i in range(layout.prefix):
         x, cache[f"layer_{i}"] = block_decode(
             params[f"layer_{i}"], x, position, cfg, kinds[i],
-            cache[f"layer_{i}"], attend, route)
+            cache[f"layer_{i}"], hooks)
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         gcache = _group(cache["scanned"], g)
         for j, kind in enumerate(layout.group_kinds):
             x, _ = block_decode(gparams[f"sub_{j}"], x, position, cfg, kind,
-                                gcache[f"sub_{j}"], attend, route)
+                                gcache[f"sub_{j}"], hooks)
     return x, cache
 
 

@@ -113,6 +113,9 @@ def test_full_qwen2_7b_is_the_cell_size():
 
 
 def test_unported_families_raise_and_input_shapes_match(ref):
+    """The vlm and audio families are what is left unported: their
+    archs and a cross-attention (encoder-decoder) block raise."""
+    assert sorted(UNPORTED) == ["llava-next-34b", "seamless-m4t-medium"]
     for name in UNPORTED:
         assert name in ref.configs.list_configs()
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
@@ -122,8 +125,8 @@ def test_unported_families_raise_and_input_shapes_match(ref):
          for k, v in ref.configs.INPUT_SHAPES.items()}
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         T.block_init(torch.Generator(), reduced_config("qwen2-7b"),
-                     {"mixer": "mamba", "ffn": "dense", "window": None,
-                      "cross": False}, torch.float32)
+                     {"mixer": "attn", "ffn": "dense", "window": None,
+                      "cross": True}, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +329,7 @@ def test_prefill_then_decode_steps(ref, pair, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_attend_reaches_every_layer(pair, arch):
-    """``Model(cfg, attend)`` calls ``attend`` once a layer: by index in
+    """``Model(cfg, attend=...)`` calls ``attend`` once a layer: by index in
     prefill, by the ring's positions in decode; the plain version given
     as ``attend`` is what the CPU path runs anyway."""
     _, _, model, params = pair(arch)
@@ -336,7 +339,7 @@ def test_attend_reaches_every_layer(pair, arch):
         calls.append((kw["q_pos"], kw["k_pos"]))
         return flash_attention_ref(q, k, v, **kw)
 
-    hooked = build_model(model.cfg, attend)
+    hooked = build_model(model.cfg, attend=attend)
     toks = {"tokens": torch.tensor(_tokens(14, model.cfg, 1, SEQ))}
     logits, st = hooked.prefill(params, toks, cache_len=40)
     assert len(calls) == model.cfg.num_layers

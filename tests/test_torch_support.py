@@ -42,6 +42,9 @@ _REFERENCE_MODULES = {
     "flash": "repro.kernels.flash_attention",
     "moe": "repro.models.moe",
     "router": "repro.kernels.moe_router",
+    "ssm": "repro.models.ssm",
+    "rwkv6": "repro.kernels.rwkv6_scan",
+    "mamba": "repro.kernels.mamba_scan",
 }
 
 
