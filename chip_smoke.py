@@ -15,14 +15,18 @@ Phases, each printing one JSON line:
   4. attn_kernel
               holds flash_attention against its plain version at the
               serving paths' shapes (qwen2-7b prefill at S = 128, 1024,
-              1536; decode at B = 8 over 2048 ring slots; deepseek-moe-16b
-              prefill at S = 1024 and decode, 16 heads of 16) and at the
-              Pallas options the path does not use (window, softcap,
-              hd 64 and 256, float32, tails), element by element
-              against the plain float32 result; three planted faults
-              (window and causal mask off by one, a ring tile dropped)
-              must fail that check; and times kernel, plain version,
-              bound and scaled_dot_product_attention
+              1536; decode at B = 8 over 2048 ring slots, partly written
+              and wrapped; deepseek-moe-16b prefill at S = 1024 and
+              decode, 16 heads of 16, group 1) and at the Pallas options
+              the path does not use (window, softcap, hd 64 and 256,
+              float32, tails of rows and keys), element by element
+              against the plain float32 result, each case naming the
+              route it ran (ops.route: wgmma, split_k_wgmma, split_k,
+              cuda_cores); four planted faults (window and causal mask
+              off by one, a ring tile dropped, one split's partial left
+              out of the combine) must fail that check; and times
+              kernel, plain version, bound and
+              scaled_dot_product_attention
   5. moe_router
               holds moe_router against its plain version at the MoE
               serving path's shapes (T = 8 a decode step, 1326 and 1536
@@ -316,6 +320,19 @@ def phase_device() -> dict:
     return info
 
 
+def _ptxas_lines(log) -> list:
+    """``-Xptxas -v``'s registers and spills, each line after the name
+    of the kernel it is about (the anonymous namespace cut off)."""
+    out = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            out.append(name.split("_cu_", 1)[-1].lstrip("0123456789abcdef"))
+        elif "registers" in ln or "spill" in ln:
+            out.append(ln.strip())
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -323,9 +340,7 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": r["seconds"],
                              "cached": r["seconds"] == 0.0,
-                             "ptxas": [ln.strip()
-                                       for ln in r["log"].splitlines()
-                                       if "registers" in ln or "spill" in ln]}
+                             "ptxas": _ptxas_lines(r["log"])}
                       for name, r in built.items()}})
 
 
@@ -511,7 +526,7 @@ def _planted_faults(kept) -> dict:
     """The check must reject the kernel run with its mask off by one or
     a tile short: each planted fault is the kernel on a case's inputs
     with one option changed, held to the case's plain result."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, ops
     q, k, v, opts, _ = kept["prefill S=1024"]
     ahead = torch.arange(1, q.shape[2] + 1, dtype=torch.int32,
                          device=q.device)
@@ -528,8 +543,21 @@ def _planted_faults(kept) -> dict:
         with torch.no_grad():
             out = flash_attention(q, k, v, **{**opts, **change})
         readings[fault] = attn_excess(out, ref)
-        check(readings[fault] > 1.0, f"planted fault '{fault}' passed the "
-              f"flash_attention check ({readings[fault]} x its limit)")
+    # the split-K kernels with split 1 (slots 256-511, live in every row
+    # whose position is past 255) left out of the combine: its l set to 0
+    # between the two kernels, as if the split had seen no key
+    q, k, v, opts, ref = kept["decode B=8 over 2048 ring slots"]
+
+    def drop_split(ws_o, ws_ml):
+        ws_ml[:, :, :, 1, 1] = 0.0
+    with torch.no_grad():
+        out = ops._split_k(q, k, v, True, None, 0.0, q.shape[-1] ** -0.5,
+                           opts["q_pos"], opts["k_pos"], edit=drop_split)
+    readings["decode: one split's partial left out of the combine"] = \
+        attn_excess(out, ref)
+    for fault, reading in readings.items():
+        check(reading > 1.0, f"planted fault '{fault}' passed the "
+              f"flash_attention check ({reading} x its limit)")
     return readings
 
 
@@ -538,13 +566,18 @@ def phase_attn_kernel() -> dict:
     record for the kernels line (all but ``launches``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_ref)
+        flash_attention, flash_attention_ref, ops)
     gen = torch.Generator().manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     B_dec, slots = 8, 2048
     last = torch.randint(128, 1600, (B_dec,), generator=gen)
     ring = _ring_positions(B_dec, slots, last)
     qpos_dec = last.to(torch.int32)[:, None].cuda()
+    # a ring that has wrapped: positions past its 2048 slots (every slot
+    # written, the oldest overwritten)
+    last_wrap = torch.randint(2100, 4000, (B_dec,), generator=gen)
+    ring_wrap = _ring_positions(B_dec, slots, last_wrap)
+    qpos_wrap = last_wrap.to(torch.int32)[:, None].cuda()
     # name, (B, H, KV, Sq, Skv, hd, dtype, cache layout), options,
     # on the serving path
     cases = [
@@ -575,6 +608,17 @@ def phase_attn_kernel() -> dict:
          {"window": 256, "softcap": 50.0}, False),
         ("non-causal, Q and K tails", (2, 6, 3, 100, 77, 128, f32, False),
          {"causal": False}, False),
+        # the tensor-core routes beyond the served shapes
+        ("bf16 prefill hd 64", (1, 28, 4, 1024, 1024, 64, bf16, True), {},
+         False),
+        ("bf16 prefill S=300, group 7: a row tail",
+         (1, 28, 4, 300, 300, 128, bf16, True), {}, False),
+        ("decode B=8 over a wrapped ring of 2048 slots",
+         (B_dec, 28, 4, 1, slots, 128, bf16, True),
+         {"q_pos": qpos_wrap, "k_pos": ring_wrap}, True),
+        ("deepseek decode B=8 over a wrapped ring, group 1",
+         (B_dec, 16, 16, 1, slots, 128, bf16, True),
+         {"q_pos": qpos_wrap, "k_pos": ring_wrap}, True),
     ]
     rows, err_max, timings, kept = [], 0.0, {}, {}
     for name, (B, H, KV, Sq, Skv, hd, dtype, cache), opts, on_path in cases:
@@ -593,7 +637,9 @@ def phase_attn_kernel() -> dict:
                   f"flash_attention {name}: a rerun is not bitwise equal")
         err_max = max(err_max, err)
         kept[name] = (q, k, v, opts, ref)
-        rows.append({"case": name, "B": B, "H": H, "KV": KV, "Sq": Sq,
+        rows.append({"case": name,
+                     "route": ops.route(Sq, H // KV, hd, dtype),
+                     "B": B, "H": H, "KV": KV, "Sq": Sq,
                      "Skv": Skv, "hd": hd, "dtype": str(dtype)[6:],
                      "opts": sorted(opts), "max_abs_err": err,
                      "err_over_limit": excess})
@@ -627,10 +673,12 @@ def phase_attn_kernel() -> dict:
                                    opts.get("k_pos"))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOP_PER_S * 1e3
-        timings[name] = {**times, "bound_ms": max(t_bytes, t_ops),
+        timings[name] = {**times, "route": rows[-1]["route"],
+                         "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops
                          else "operations", "flops": flops, "bytes": nbytes,
-                         "tflops_per_s": flops / times["ms"] / 1e9}
+                         "tflops_per_s": flops / times["ms"] / 1e9,
+                         "gb_per_s": nbytes / times["ms"] / 1e6}
     emit({"phase": "attn_kernel", "kernel": "flash_attention",
           "limit": f"{ATTN_ATOL} + rtol * |plain|, element by element",
           "rtol": {"float32": ATTN_RTOL[f32], "bfloat16": ATTN_RTOL[bf16]},
@@ -638,9 +686,16 @@ def phase_attn_kernel() -> dict:
     emit({"phase": "attn_kernel_times", "kernel": "flash_attention",
           "timings": timings})
     main = timings["prefill S=1024"]
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
+            "source": csrc + "flash_attention_wgmma.cu",
+            "sources": {"wgmma": csrc + "flash_attention_wgmma.cu",
+                        "split_k_wgmma": csrc + "flash_attention_wgmma.cu "
+                                         "+ flash_attention.cu (combine)",
+                        "split_k": csrc + "flash_attention.cu",
+                        "cuda_cores": csrc + "flash_attention.cu"},
+            "kernels_per_call": {"wgmma": 1, "split_k_wgmma": 2,
+                                 "split_k": 2, "cuda_cores": 1},
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:88",
             "max_abs_err": err_max,

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels with ``nvcc`` at first use.
 
-Each kernel is one ``csrc/*.cu`` file with a plain ``extern "C"``
-launcher, compiled for Hopper (``sm_90a``) into a shared library under
+Each library is one ``csrc/*.cu`` file with plain ``extern "C"``
+launchers (flash_attention's tensor-core route is a library of its own),
+compiled for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout and loaded with
 ``ctypes``.  A library's file name carries a hash of its source and
 flags, so an edited source is rebuilt and an unchanged one is not.
@@ -22,9 +23,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
 
-# kernel name -> source, relative to this package
+# library name -> source, relative to this package
 SOURCES = {"vfl_matmul": "vfl_matmul/csrc/vfl_matmul.cu",
            "flash_attention": "flash_attention/csrc/flash_attention.cu",
+           "flash_attention_wgmma":
+               "flash_attention/csrc/flash_attention_wgmma.cu",
            "moe_router": "moe_router/csrc/moe_router.cu",
            "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
            "mamba_scan": "mamba_scan/csrc/mamba_scan.cu"}

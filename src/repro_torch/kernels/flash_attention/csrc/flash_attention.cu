@@ -1,5 +1,8 @@
-// flash_attention for Hopper (sm_90a): forward attention with an
-// online softmax, for the LM's prefill and decode.
+// flash_attention for Hopper (sm_90a) on the CUDA cores: forward
+// attention with an online softmax, float32 sums, for what the tensor-core
+// kernels of flash_attention_wgmma.cu do not take (float32, and bf16 at
+// hd 256), and the combine kernel of every split-K decode.  The wrapper
+// (ops.py) picks the route by the call's shape and dtype.
 //
 //   o[b, h, i, :] = sum_j softmax_j(s[i, j]) * v[b, h / group, j, :]
 //   s[i, j] = cap * tanh(scale * q[b, h, i, :] . k[b, h / group, j, :] / cap)
@@ -17,35 +20,52 @@
 // Replaces the Pallas TPU kernel flash_attention_p
 // (src/repro/kernels/flash_attention/flash_attention.py:88), whose grid
 // (B, H, Sq/bq, Skv/bk) runs the kv axis in order on one core and keeps
-// the running max, denominator and accumulator in VMEM scratch.  Here the
-// kv axis is a loop inside the block and that state lives in registers.
+// the running max, denominator and accumulator in VMEM scratch.
 //
-// Work of one block: batch b, kv head kvh, and a tile of BQ "rows", a row
-// being one (query position i, head of kvh's group) pair, position-major.
-// So the group's GQA heads share every K/V tile the block loads (kv head
-// h / group is indexed, never copied), and a decode step (Sq = 1) still
-// fills a block with the group's heads.  Each warp owns RPW rows; lane j
-// scores key j of a 32-key tile against them, then owns output dims
-// lane, lane + 32, ... in the P.V sum.  A kv tile is skipped when its
-// positions prove every element of it masked for every row of the block
-// (causal future, outside the window, or unwritten ring slots with
-// position -1); without explicit key positions the causal and window
-// bounds also cut the loop's range, as the Pallas kernel's block skip does.
+// Rows: a row is one (query position i, head of kv head kvh's group) pair,
+// position-major, so the group's GQA heads share every K/V tile a block
+// loads (kv head h / group is indexed, never copied), and a decode step
+// (Sq = 1) still fills a block with the group's heads.
 //
-// What bounds it on the H100: in prefill, the operations (4 * hd flops per
-// visible (query, key) pair, about 7.5 GFLOP per qwen2-7b layer at
-// S = 1024); in decode, the bytes of the K/V cache (33.5 MB per layer at
-// B = 8 over 2048 slots).  This first design computes on the CUDA cores
-// in float32 (fmaf), reads each K/V tile once per block through shared
-// memory with 16-byte loads, and skips masked tiles, so it is far from
-// the tensor-core bound in prefill.  wgmma with TMA-fed tiles, warp
-// specialisation and split-K decode are later work.
+// "cuda_cores", flash_attention_kernel: float32 prefill, and bf16 at hd 256
+// (whose 64 x 256 float32 accumulator a warpgroup would hold does not fit the
+// tensor-core kernel's registers).  One block per (batch, kv head, tile of
+// rows); the kv axis a loop inside it, the online-softmax state in registers.
+// Each warp owns RPW rows; lane j scores key j of a 32-key tile against them,
+// then owns output dims lane, lane + 32, ... in the P.V sum.  A kv tile is
+// skipped when its positions prove every element of it masked for every row of
+// the block (causal future, outside the window, or unwritten ring slots at
+// position -1); without explicit key positions the causal and window bounds
+// also cut the loop's range, as the Pallas kernel's block skip does.  Bound by
+// operations (4 * hd flops per visible pair); it runs them as float32 FMAs, far
+// from the card's peak: no served model is float32.
 //
-// Determinism: each output row is reduced by one warp over the kv tiles
-// in a fixed order, with no atomics, and a row's arithmetic does not
-// depend on which other rows share its block, so reruns are bitwise and
-// the result does not depend on the batch.  A skipped or fully masked
-// tile leaves a row's state exactly as it was.
+// "split_k", decode_partial_kernel + decode_combine_kernel: every call of at
+// most 64 rows (a decode step: 7 rows for qwen2-7b, 1 for deepseek) in float32,
+// or in bf16 at hd 256 (bf16 at hd 64 and 128, the served models, takes
+// flash_attention_wgmma.cu's split-K partials and this combine). Bound by the
+// bytes of the K/V cache (a few flops a byte); the work is to spread the slots
+// over the card and keep their bytes in flight.  The kv axis is cut into splits
+// of SPLIT slots (the count depends on Skv alone, never on the batch), one
+// block of 8 warps per (split, kv head, batch), one warp per 32-slot tile of
+// the split.  A warp whose tile holds no key that a row of the block sees does
+// nothing; otherwise lane j reads slot j's key row with 16-byte loads (4 in
+// flight) and scores it against up to 8 rows at a time, then the warp reads the
+// value rows coalesced, 8 in flight, each lane owning hd / 32 output dims.
+// Slots at -1 are not read.  The block merges its warps' partials of a row in
+// warp order and writes the row's (m, l, o[hd]) in float32 to a workspace the
+// wrapper allocates; a split no row sees writes l = 0 and stops.  The combine
+// kernel, one warp a row, merges a row's partials in split order:
+//   o = sum_s e^(m_s - M) o_s / sum_s e^(m_s - M) l_s
+// over the splits with l_s > 0.
+//
+// Determinism: each output row is reduced in a fixed order (cuda_cores: one
+// warp over the kv tiles; split_k: one warp a tile, then one warp over the
+// tiles of a split, then one over the splits), with no atomics, and a
+// row's arithmetic does not depend on which other rows share its block
+// (rows are scored and normalised one by one), so reruns are bitwise and
+// the result does not depend on the batch.  A skipped or fully masked tile
+// leaves a row's state exactly as it was.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +79,7 @@ namespace {
 constexpr int BK = 32;          // keys per tile: one per lane
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+constexpr int RPW = 8;          // flash_attention_kernel: rows per warp
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
@@ -135,7 +156,7 @@ __device__ __forceinline__ bool sees(int qp, int kp, const Params& p) {
          (!p.window || (long long)qp - kp < p.window);
 }
 
-template <int HD, int RPW>
+template <int HD>
 constexpr size_t smem_bytes() {
   // Q [BQ][HD], K [BK][HD + 4], V [BK][HD] as float, key and row positions
   return sizeof(float) * ((size_t)WARPS * RPW * HD + BK * (HD + 4) +
@@ -143,7 +164,7 @@ constexpr size_t smem_bytes() {
          sizeof(int) * (BK + WARPS * RPW);
 }
 
-template <typename T, int HD, int RPW>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const Params p) {
   constexpr int BQ = WARPS * RPW;
@@ -313,11 +334,11 @@ flash_attention_kernel(const Params p) {
   }
 }
 
-template <typename T, int HD, int RPW>
+template <typename T, int HD>
 cudaError_t launch(const Params& p, int B, int KV, cudaStream_t stream) {
   constexpr int BQ = WARPS * RPW;
-  constexpr size_t smem = smem_bytes<HD, RPW>();
-  auto kernel = flash_attention_kernel<T, HD, RPW>;
+  constexpr size_t smem = smem_bytes<HD>();
+  auto kernel = flash_attention_kernel<T, HD>;
   // above 48 KB a block's shared memory must be asked for; once per
   // instantiation (it is a property of the function, not of a launch)
   static cudaError_t attr = cudaFuncSetAttribute(
@@ -329,24 +350,357 @@ cudaError_t launch(const Params& p, int B, int KV, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const Params& p, int B, int KV, cudaStream_t stream) {
-  // a decode step's rows are the group's heads (7 for qwen2-7b): 2 rows
-  // a warp keep the four warps busy; prefill takes 8 rows a warp
-  if ((long long)p.Sq * p.group <= 2 * WARPS)
-    return launch<T, HD, 2>(p, B, KV, stream);
-  return launch<T, HD, 8>(p, B, KV, stream);
-}
-
 template <typename T>
 cudaError_t launch_t(const Params& p, int B, int KV, int hd,
                      cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_hd<T, 64>(p, B, KV, stream);
-    case 128: return launch_hd<T, 128>(p, B, KV, stream);
-    case 256: return launch_hd<T, 256>(p, B, KV, stream);
+    case 64: return launch<T, 64>(p, B, KV, stream);
+    case 128: return launch<T, 128>(p, B, KV, stream);
+    case 256: return launch<T, 256>(p, B, KV, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// route 2: split-K decode
+
+constexpr int SPLIT = 256;               // kv slots a split (ops.SPLIT_SLOTS)
+constexpr int DWARPS = SPLIT / BK;       // one warp a 32-slot tile
+constexpr int DTHREADS = DWARPS * 32;
+constexpr int MAX_ROWS = 64;             // ops.DECODE_ROWS
+constexpr int CR = 8;                    // rows a warp carries at once
+
+// shared memory of a partial block: key and row positions, tile flags,
+// each warp's partials of CR rows (o[HD], m, l), the rows of q as float
+template <int HD>
+constexpr size_t decode_smem_bytes(int rows) {
+  return sizeof(int) * (SPLIT + MAX_ROWS + DWARPS) +
+         sizeof(float) * ((size_t)DWARPS * CR * (HD + 2) +
+                          (size_t)((rows + CR - 1) / CR * CR) * HD);
+}
+
+// N consecutive elements of T (4 to 32 bytes, aligned to their size) as
+// floats
+template <typename T, int N>
+__device__ __forceinline__ void load_n(const T* src, float* dst) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  if constexpr (BYTES >= 16) {
+    constexpr int E = 16 / sizeof(T);
+#pragma unroll
+    for (int i = 0; i < N; i += E) load16<T>(src + i, dst + i);
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float2 f = *reinterpret_cast<const float2*>(src);   // 8 bytes
+    dst[0] = f.x;
+    dst[1] = f.y;
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(src);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// One split of one (batch, kv head): each row's max m, denominator l and
+// unnormalised o over the split's slots, to ws_ml [row][split][2] and
+// ws_o [row][split][HD], row = (b * KV + kvh) * rows + r.  Warp w takes
+// slots 32 w ... 32 w + 31 of the split (skipped when no row sees one of
+// them) for CR rows at a time: lane j scores slot j, reading its key row
+// with 16-byte loads, and owns dims DPL lane ... in the P.V sum, reading a
+// value row coalesced; slots at -1 are not read.  The warps' partials of
+// a row are then merged in warp order by one warp.
+template <typename T, int HD>
+__global__ void __launch_bounds__(DTHREADS)
+decode_partial_kernel(const Params p, float* ws_o, float* ws_ml,
+                      int splits) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = HD / VEC;
+  constexpr int DPL = HD / 32;
+  constexpr int PW = HD + 2;
+
+  extern __shared__ float4 smem4[];
+  int* kpos_s = reinterpret_cast<int*>(smem4);
+  int* qpos_s = kpos_s + SPLIT;
+  int* live_s = qpos_s + MAX_ROWS;
+  float* part = reinterpret_cast<float*>(live_s + DWARPS);
+  float* Qs = part + DWARPS * CR * PW;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = p.group, rows = p.Sq * group;
+  const int rows_pad = (rows + CR - 1) / CR * CR;
+  const int slot0 = split * SPLIT;
+
+  const T* qb = static_cast<const T*>(p.q) + b * p.qsb;
+  const T* kb = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
+
+  for (int e = tid; e < SPLIT; e += DTHREADS) {
+    const int j = slot0 + e;
+    kpos_s[e] = j < p.Skv ? (p.k_pos ? p.k_pos[b * p.kpb + j] : j) : -1;
+  }
+  for (int e = tid; e < rows_pad * CPR; e += DTHREADS) {
+    const int r = e / CPR, c = e % CPR;
+    float t[VEC];
+    if (r < rows) {
+      const int i = r / group, h = kvh * group + r % group;
+      load16<T>(qb + h * p.qsh + (long long)i * p.qss + c * VEC, t);
+    } else {
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) t[x] = 0.f;
+    }
+    store16(Qs + r * HD + c * VEC, t, VEC);
+  }
+  if (tid < rows) {
+    const int i = tid / group;
+    qpos_s[tid] = p.q_pos ? p.q_pos[b * p.qpb + i] : i;
+  }
+  __syncthreads();
+
+  int qmin = INT_MAX, qmax = INT_MIN;
+  for (int r = 0; r < rows; ++r) {
+    qmin = min(qmin, qpos_s[r]);
+    qmax = max(qmax, qpos_s[r]);
+  }
+  const int kp = kpos_s[warp * BK + lane];      // this lane's slot
+  {
+    const bool live = kp >= 0 && (!p.causal || kp <= qmax) &&
+                      (!p.window || (long long)qmin - kp < p.window);
+    const unsigned any = __any_sync(FULL, live);
+    if (lane == 0) live_s[warp] = any ? 1 : 0;
+  }
+  __syncthreads();
+  bool any_live = false;
+#pragma unroll
+  for (int w = 0; w < DWARPS; ++w) any_live |= live_s[w] != 0;
+  const long long rec0 =
+      ((long long)b * gridDim.y + kvh) * rows * splits + split;
+  if (!any_live) {                     // no row sees a key of this split
+    if (tid < rows) {
+      ws_ml[(rec0 + (long long)tid * splits) * 2] = -INFINITY;
+      ws_ml[(rec0 + (long long)tid * splits) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  const bool my_live = live_s[warp] != 0;
+  const int wslot0 = slot0 + warp * BK;
+  const T* krow = kb + (long long)(kp >= 0 ? wslot0 + lane : 0) * p.kss;
+
+  for (int r0 = 0; r0 < rows; r0 += CR) {
+    float m[CR], l[CR], acc[CR][DPL];
+#pragma unroll
+    for (int r = 0; r < CR; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
+    }
+    if (my_live) {
+      // scores of slot `lane` against the chunk's rows
+      float s[CR];
+#pragma unroll
+      for (int r = 0; r < CR; ++r) s[r] = 0.f;
+      if (kp >= 0) {
+#pragma unroll 4
+        for (int c = 0; c < CPR; ++c) {
+          float kf[VEC];
+          load16<T>(krow + c * VEC, kf);
+#pragma unroll
+          for (int r = 0; r < CR; ++r) {
+            const float* qr = Qs + (r0 + r) * HD + c * VEC;
+#pragma unroll
+            for (int x = 0; x < VEC; x += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qr + x);
+              s[r] = fmaf(qv.x, kf[x], s[r]);
+              s[r] = fmaf(qv.y, kf[x + 1], s[r]);
+              s[r] = fmaf(qv.z, kf[x + 2], s[r]);
+              s[r] = fmaf(qv.w, kf[x + 3], s[r]);
+            }
+          }
+        }
+      }
+      // softmax over the tile's 32 slots, as flash_attention_kernel
+#pragma unroll
+      for (int r = 0; r < CR; ++r) {
+        float x = s[r] * p.scale;
+        if (p.softcap != 0.f) x = p.softcap * tanhf(x / p.softcap);
+        const bool ok = r0 + r < rows && sees(qpos_s[min(r0 + r, rows - 1)],
+                                              kp, p);
+        const float mx = warp_max(ok ? x : -INFINITY);
+        const float pr = mx == -INFINITY || !ok ? 0.f : expf(x - mx);
+        m[r] = mx;
+        l[r] = warp_sum(pr);
+        s[r] = pr;
+      }
+      // acc += p . V, slot by slot in order; lane owns dims DPL lane ...
+#pragma unroll 8
+      for (int j = 0; j < BK; ++j) {
+        float vv[DPL];
+        if (kpos_s[warp * BK + j] >= 0) {
+          load_n<T, DPL>(vb + (long long)(wslot0 + j) * p.vss + lane * DPL,
+                         vv);
+        } else {
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) vv[d] = 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < CR; ++r) {
+          const float pj = __shfl_sync(FULL, s[r], j);
+#pragma unroll
+          for (int d = 0; d < DPL; ++d)
+            acc[r][d] = fmaf(pj, vv[d], acc[r][d]);
+        }
+      }
+    }
+    float* pw = part + warp * CR * PW;
+#pragma unroll
+    for (int r = 0; r < CR; ++r) {
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) pw[r * PW + lane * DPL + d] = acc[r][d];
+      if (lane == 0) {
+        pw[r * PW + HD] = m[r];
+        pw[r * PW + HD + 1] = l[r];
+      }
+    }
+    __syncthreads();
+    // warp w merges rows r0 + w, r0 + w + DWARPS, ... over the split's
+    // tiles, in order
+    for (int r = warp; r < CR && r0 + r < rows; r += DWARPS) {
+      float mx = -INFINITY;
+      for (int w = 0; w < DWARPS; ++w) {
+        const float* pr = part + (w * CR + r) * PW;
+        if (pr[HD + 1] > 0.f) mx = fmaxf(mx, pr[HD]);
+      }
+      float lsum = 0.f, o[DPL];
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) o[d] = 0.f;
+      for (int w = 0; w < DWARPS; ++w) {
+        const float* pr = part + (w * CR + r) * PW;
+        if (!(pr[HD + 1] > 0.f)) continue;
+        const float e = expf(pr[HD] - mx);
+        lsum += e * pr[HD + 1];
+#pragma unroll
+        for (int d = 0; d < DPL; ++d)
+          o[d] = fmaf(e, pr[lane * DPL + d], o[d]);
+      }
+      const long long rec = rec0 + (long long)(r0 + r) * splits;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) ws_o[rec * HD + lane * DPL + d] = o[d];
+      if (lane == 0) {
+        ws_ml[rec * 2] = mx;
+        ws_ml[rec * 2 + 1] = lsum;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One warp a row: the row's partials merged in split order.  The lanes
+// find the largest m of the splits with l > 0 (32 splits at a time); then
+// every lane walks the splits in order, 8 loads in flight.
+template <typename T, int HD>
+__global__ void __launch_bounds__(128)
+decode_combine_kernel(const Params p, const float* ws_o, const float* ws_ml,
+                      int splits, int KV, int total) {
+  constexpr int DPL = HD / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= total) return;
+  const int rows = p.Sq * p.group;
+  const int r = row % rows, kvh = (row / rows) % KV, b = row / (rows * KV);
+  const float2* ml = reinterpret_cast<const float2*>(ws_ml) +
+                     (long long)row * splits;
+  const float* os = ws_o + (long long)row * splits * HD;
+
+  float mx = -INFINITY;
+  for (int s = lane; s < splits; s += 32) {
+    const float2 x = ml[s];
+    if (x.y > 0.f) mx = fmaxf(mx, x.x);
+  }
+  mx = warp_max(mx);
+  float lsum = 0.f, acc[DPL];
+#pragma unroll
+  for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) {
+    const float2 x = ml[s];
+    const bool live = x.y > 0.f;         // a dead split's o is not written
+    const float w = live ? expf(x.x - mx) : 0.f;
+    lsum += w * x.y;
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) {
+      const float v = os[(long long)s * HD + lane + 32 * d];
+      acc[d] = fmaf(w, live ? v : 0.f, acc[d]);
+    }
+  }
+  const int i = r / p.group, h = kvh * p.group + r % p.group;
+  T* orow = static_cast<T*>(p.o) + b * p.osb + h * p.osh + (long long)i * p.oss;
+#pragma unroll
+  for (int d = 0; d < DPL; ++d)
+    orow[lane + 32 * d] = from_float<T>(lsum == 0.f ? 0.f : acc[d] / lsum);
+}
+
+template <typename T, int HD>
+cudaError_t launch_decode(const Params& p, int B, int KV, float* ws_o,
+                          float* ws_ml, int splits, int phases,
+                          cudaStream_t stream) {
+  const int rows = p.Sq * p.group;
+  if (phases & 1) {
+    auto kernel = decode_partial_kernel<T, HD>;
+    static cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)decode_smem_bytes<HD>(MAX_ROWS));
+    if (attr != cudaSuccess) return attr;
+    kernel<<<dim3(splits, KV, B), DTHREADS, decode_smem_bytes<HD>(rows),
+             stream>>>(p, ws_o, ws_ml, splits);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (phases & 2) {
+    const int total = B * KV * rows;
+    decode_combine_kernel<T, HD><<<(total + 3) / 4, 128, 0, stream>>>(
+        p, ws_o, ws_ml, splits, KV, total);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_decode_t(const Params& p, int B, int KV, int hd,
+                            float* ws_o, float* ws_ml, int splits, int phases,
+                            cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return launch_decode<T, 64>(p, B, KV, ws_o, ws_ml, splits, phases,
+                                  stream);
+    case 128:
+      return launch_decode<T, 128>(p, B, KV, ws_o, ws_ml, splits, phases,
+                                   stream);
+    case 256:
+      return launch_decode<T, 256>(p, B, KV, ws_o, ws_ml, splits, phases,
+                                   stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   const int* q_pos, const int* k_pos, int H, int KV, int Sq,
+                   int Skv, const long long* strides, int causal, int window,
+                   float softcap, float scale) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q_pos = q_pos; p.k_pos = k_pos;
+  p.qsb = strides[0]; p.qsh = strides[1]; p.qss = strides[2];
+  p.ksb = strides[3]; p.ksh = strides[4]; p.kss = strides[5];
+  p.vsb = strides[6]; p.vsh = strides[7]; p.vss = strides[8];
+  p.osb = strides[9]; p.osh = strides[10]; p.oss = strides[11];
+  p.qpb = strides[12]; p.kpb = strides[13];
+  p.group = H / KV; p.Sq = Sq; p.Skv = Skv;
+  p.causal = causal; p.window = window;
+  p.softcap = softcap; p.scale = scale;
+  return p;
 }
 
 }  // namespace
@@ -362,20 +716,38 @@ extern "C" int flash_attention_launch(
   if (B <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv < 0 ||
       B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.q_pos = q_pos; p.k_pos = k_pos;
-  p.qsb = strides[0]; p.qsh = strides[1]; p.qss = strides[2];
-  p.ksb = strides[3]; p.ksh = strides[4]; p.kss = strides[5];
-  p.vsb = strides[6]; p.vsh = strides[7]; p.vss = strides[8];
-  p.osb = strides[9]; p.osh = strides[10]; p.oss = strides[11];
-  p.qpb = strides[12]; p.kpb = strides[13];
-  p.group = H / KV; p.Sq = Sq; p.Skv = Skv;
-  p.causal = causal; p.window = window;
-  p.softcap = softcap; p.scale = scale;
+  const Params p = make_params(q, k, v, o, q_pos, k_pos, H, KV, Sq, Skv,
+                               strides, causal, window, softcap, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_t<__nv_bfloat16>(p, B, KV, hd, s)
               : launch_t<float>(p, B, KV, hd, s);
+  return (int)err;
+}
+
+// Route 2: the arguments of flash_attention_launch, then the workspace
+// ws_o (float32 [B, KV, rows, splits, hd]) and ws_ml ([..., splits, 2]),
+// rows = Sq * H / KV <= 64, splits = max(1, ceil(Skv / 256)), and which
+// kernels to run: 1 the partials, 2 the combine, 3 both.  Returns the CUDA
+// error of the launches (0 on success).
+extern "C" int flash_attention_decode_launch(
+    const void* q, const void* k, const void* v, void* o, const int* q_pos,
+    const int* k_pos, int is_bf16, int B, int H, int KV, int Sq, int Skv,
+    int hd, const long long* strides, int causal, int window, float softcap,
+    float scale, float* ws_o, float* ws_ml, int splits, int phases,
+    void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv < 0 ||
+      B > 65535 || KV > 65535 || (long long)Sq * (H / KV) > MAX_ROWS ||
+      splits != (Skv > SPLIT ? (Skv + SPLIT - 1) / SPLIT : 1) ||
+      splits > 65535 || phases < 1 || phases > 3)
+    return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, o, q_pos, k_pos, H, KV, Sq, Skv,
+                               strides, causal, window, softcap, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_decode_t<__nv_bfloat16>(p, B, KV, hd, ws_o, ws_ml,
+                                               splits, phases, s)
+              : launch_decode_t<float>(p, B, KV, hd, ws_o, ws_ml, splits,
+                                       phases, s);
   return (int)err;
 }

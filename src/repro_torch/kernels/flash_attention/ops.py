@@ -8,13 +8,32 @@ dtype (float32 or bfloat16).  It adds optional int32 positions, q_pos
 [Sq] or [B, Sq] and k_pos [Skv] or [B, Skv] (default: arange), for the
 model's decode over a ring-buffer cache; ``ref.py`` states the mask.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/flash_attention.cu``, built at first use) or raises; on a CPU
-tensor it runs the plain version in ``ref.py``.  There is no other path.
-The kernel reads q, k and v through their strides (unit stride along
-hd), so a transposed view of the model's [B, S, H, hd] activations costs
-no copy; its output has q's memory layout.  It supports head dims 64,
-128 and 256.  Forward only: the serving path needs no gradient.
+On a CUDA tensor it launches a hand-written Hopper kernel (built at
+first use) or raises; on a CPU tensor it runs the plain version in
+``ref.py``.  There is no other path.  ``route`` picks the kernel from the
+call's static shape and dtype, never by catching a failure:
+
+- ``"split_k_wgmma"`` and ``"split_k"``, every call of at most
+  ``DECODE_ROWS`` rows (a row is one (query, head) pair: a decode
+  step): the kv axis cut into ``num_splits(Skv)`` splits of
+  ``SPLIT_SLOTS`` slots, one block a (split, kv head, batch) writing
+  float32 partials to a workspace allocated here, then a combine kernel
+  (``csrc/flash_attention.cu``).  The partials run on the tensor cores
+  for bfloat16 at head dims 64 and 128 (``split_k_wgmma``,
+  ``csrc/flash_attention_wgmma.cu``), else on the CUDA cores.
+- ``"wgmma"``, the other bfloat16 calls at head dims 64 and 128: the
+  tensor cores, with the probabilities split into two bf16 parts so
+  that the result stays float32-accurate
+  (``csrc/flash_attention_wgmma.cu``).
+- ``"cuda_cores"``, the rest (float32 prefill; bfloat16 at head dim 256,
+  whose float32 accumulator does not fit the ``wgmma`` route's
+  registers): ``csrc/flash_attention.cu``.
+
+Each call counts one launch, whichever route (a split-K call runs two
+kernels).  The kernels read q, k and v through their strides (unit
+stride along hd), so a transposed view of the model's [B, S, H, hd]
+activations costs no copy; the output has q's memory layout.  Head dims
+64, 128 and 256.  Forward only: the serving path needs no gradient.
 """
 from __future__ import annotations
 
@@ -57,13 +76,49 @@ def _check(q, k, v, q_pos, k_pos):
                          f"and {v.device}")
 
 
+# a call of at most DECODE_ROWS rows takes a split-K route, whose kv
+# splits are SPLIT_SLOTS slots (the kernels' SPLIT and MAX_ROWS)
+DECODE_ROWS = 64
+SPLIT_SLOTS = 256
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def route(Sq, group, hd, dtype) -> str:
+    """The kernels a CUDA call of Sq queries, ``group`` heads a kv head,
+    head dim hd and ``dtype`` runs (module doc)."""
+    tensor_cores = dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+    if Sq * group <= DECODE_ROWS:
+        return "split_k_wgmma" if tensor_cores else "split_k"
+    return "wgmma" if tensor_cores else "cuda_cores"
+
+
+def num_splits(Skv) -> int:
+    """The split-K routes' kv splits: a function of Skv alone, so that a
+    row's arithmetic does not depend on the batch."""
+    return max(1, -(-Skv // SPLIT_SLOTS))
+
+
+# C launcher -> (library, arguments after flash_attention_launch's own)
+_LAUNCHERS = {
+    "flash_attention_launch": ("flash_attention", []),
+    "flash_attention_decode_launch":
+        ("flash_attention", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2),
+    "flash_attention_wgmma_launch": ("flash_attention_wgmma", []),
+    "flash_attention_wgmma_partials_launch":
+        ("flash_attention_wgmma", [ctypes.c_void_p] * 2 + [ctypes.c_int]),
+}
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+         + [ctypes.c_int] * 2 + [ctypes.c_float] * 2)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel(name):
+    """The C launcher ``name`` of ``_LAUNCHERS``, its library built at
+    first use."""
     from repro_torch.kernels import build
-    fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib, extra = _LAUNCHERS[name]
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = _ARGS + extra + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -78,32 +133,82 @@ def _aligned(t):
     return t.contiguous()
 
 
-def _launch(q, k, v, causal, window, softcap, scale, q_pos, k_pos):
+class _Call:
+    """One call's operands as the kernels read them, and the output."""
+
+    def __init__(self, q, k, v, causal, window, softcap, scale, q_pos,
+                 k_pos):
+        B, H, Sq, hd = q.shape
+        KV, Skv = k.shape[1], k.shape[2]
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"the flash_attention kernels take head dims "
+                             f"{HEAD_DIMS}, got {hd}")
+        if B > 65535 or KV > 65535:
+            raise ValueError(f"B={B} or KV={KV} exceed the kernels' grid")
+        self.q, self.k, self.v = _aligned(q), _aligned(k), _aligned(v)
+        self.out = _aligned(torch.empty_like(q))
+        self.pos = [None if p is None else p.contiguous()
+                    for p in (q_pos, k_pos)]
+        pos_b = [0 if p is None or p.dim() == 1 else p.stride(0)
+                 for p in self.pos]
+        self.strides = (ctypes.c_longlong * 14)(
+            *self.q.stride()[:3], *self.k.stride()[:3], *self.v.stride()[:3],
+            *self.out.stride()[:3], *pos_b)
+        self.args = (int(q.dtype == torch.bfloat16), B, H, KV, Sq, Skv, hd,
+                     self.strides, int(causal), int(window or 0),
+                     float(softcap or 0.0), float(scale))
+
+    def run(self, name, *extra):
+        """Runs the C launcher ``name``; raises on a CUDA error."""
+        with torch.cuda.device(self.q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _kernel(name)(
+                self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
+                self.out.data_ptr(),
+                *(None if p is None else p.data_ptr() for p in self.pos),
+                *self.args, *extra, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed "
+                               f"({name}): CUDA error {err}")
+
+
+def _split_k(q, k, v, causal, window, softcap, scale, q_pos, k_pos,
+             edit=None):
+    """A split-K route: each split's partials (tensor cores for bf16 at
+    head dims 64 and 128, else the CUDA cores) into a float32 workspace,
+    then the combine.  ``edit(ws_o, ws_ml)``, where given, runs between
+    the two (a check's planted fault); ws_o is [B, KV, rows, splits, hd]
+    and ws_ml [B, KV, rows, splits, 2] (max, denominator)."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {hd}")
-    if B > 65535 or KV > 65535:
-        raise ValueError(f"B={B} or KV={KV} exceed the kernel's grid")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = _aligned(torch.empty_like(q))
-    pos = [None if p is None else p.contiguous() for p in (q_pos, k_pos)]
-    pos_b = [0 if p is None or p.dim() == 1 else p.stride(0) for p in pos]
-    strides = (ctypes.c_longlong * 14)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        *pos_b)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *(None if p is None else p.data_ptr() for p in pos),
-                 int(q.dtype == torch.bfloat16), B, H, KV, Sq, Skv, hd,
-                 strides, int(causal), int(window or 0), float(softcap or 0.0),
-                 float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    rows, splits = Sq * (H // KV), num_splits(Skv)
+    call = _Call(q, k, v, causal, window, softcap, scale, q_pos, k_pos)
+    ws_o = torch.empty((B, KV, rows, splits, hd), dtype=torch.float32,
+                       device=q.device)
+    ws_ml = torch.empty((B, KV, rows, splits, 2), dtype=torch.float32,
+                        device=q.device)
+    ws = (ws_o.data_ptr(), ws_ml.data_ptr(), splits)
+    if route(Sq, H // KV, hd, q.dtype) == "split_k_wgmma":
+        call.run("flash_attention_wgmma_partials_launch", *ws)
+    else:
+        call.run("flash_attention_decode_launch", *ws, 1)
+    if edit is not None:
+        edit(ws_o, ws_ml)
+    call.run("flash_attention_decode_launch", *ws, 2)
+    return call.out
+
+
+def _launch(q, k, v, causal, window, softcap, scale, q_pos, k_pos):
+    B, H, Sq, hd = q.shape
+    which = route(Sq, H // k.shape[1], hd, q.dtype)
+    args = (q, k, v, causal, window, softcap, scale, q_pos, k_pos)
+    if which.startswith("split_k"):
+        out = _split_k(*args)
+    else:
+        call = _Call(*args)
+        call.run("flash_attention_wgmma_launch" if which == "wgmma"
+                 else "flash_attention_launch")
+        out = call.out
     flash_attention.launches += 1
     return out
 
@@ -126,6 +231,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 
-# kernel launches since import or since the caller last set it to 0;
-# the CPU path adds nothing
+# calls that launched on the card since import or since the caller last
+# set it to 0 (one a call, whichever route); the CPU path adds nothing
 flash_attention.launches = 0

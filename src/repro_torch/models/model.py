@@ -115,6 +115,11 @@ class Model:
     # ------------------------------------------------------------------
     def init_decode_state(self, batch_size, seq_len, prefill_len=None,
                           device=None):
+        """Empty caches and positions for ``batch_size`` slots of
+        ``seq_len``, on ``device``: CUDA unless the caller names another
+        (raises without a card, as the rest of the port does)."""
+        from repro_torch.core.protocol import resolve_device
+        device = resolve_device(device)
         return {
             "cache": T.stack_init_cache(self.cfg, self.kinds, batch_size,
                                         seq_len, self.dtype, device),

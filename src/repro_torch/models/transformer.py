@@ -302,6 +302,10 @@ def stack_apply(params, x, positions, cfg, kinds, hooks=None):
 
 
 def stack_init_cache(cfg, kinds, batch, seq_len, dtype, device=None):
+    """Every layer's empty cache, on ``device``: CUDA unless the caller
+    names another (raises without a card)."""
+    from repro_torch.core.protocol import resolve_device
+    device = resolve_device(device)
     layout = StackLayout(cfg, kinds)
     cache = {}
     for i in range(layout.prefix):

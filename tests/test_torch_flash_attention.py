@@ -8,13 +8,27 @@ reference model's ``_attend`` for the position tensors the decode path
 passes.  The kernel itself is held to the plain version on the card (the
 ``cuda`` test below, and chip_smoke.py).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_ref)
+    combine_ref, decode_partials_ref, flash_attention, flash_attention_ref,
+    ops, tensor_core_emulation)
 from test_torch_support import reference
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its attention check (``attn_excess``)
+    is the kernels' contract on the card."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.fixture(scope="module")
@@ -205,12 +219,131 @@ def test_cpu_path_counts_no_launches():
     assert flash_attention.launches == before
 
 
+def _bf16_qkv(seed, B, H, KV, S, hd):
+    return tuple(_torch(a, torch.bfloat16)
+                 for a in _qkv(seed, B, H, KV, S, S, hd))
+
+
+@pytest.mark.parametrize("split_p,passes", [(True, True), (False, False)],
+                         ids=["p_split_hi_lo", "p_rounded_once"])
+def test_tensor_core_numerics_meet_the_chip_check(split_p, passes):
+    """The wgmma route's arithmetic, emulated (ref.tensor_core_emulation)
+    at a reduced serving shape (causal, GQA group 7, hd 128, S = 512,
+    bf16 inputs): with P split into bf16 hi and lo parts it meets
+    chip_smoke.py's element-by-element limit against the float32 plain
+    version (the bf16 output rounding takes up most of it); rounding P
+    to bf16 once, as SDPA does, puts a fifth of the outputs over it."""
+    q, k, v = _bf16_qkv(11, 1, 7, 1, 512, 128)
+    plain = flash_attention_ref(q.float(), k.float(), v.float())
+    out = tensor_core_emulation(q, k, v, split_p=split_p)
+    assert out.dtype == torch.bfloat16
+    excess = _chip_smoke().attn_excess(out, plain)
+    if passes:
+        assert excess <= 1.0, excess
+    else:
+        assert excess > 10.0, excess
+
+
+def test_tensor_core_emulation_masks_like_the_plain_version():
+    """Windows, softcaps, ring positions and tails: the emulation sees
+    the same keys as the plain version (within bf16 of it)."""
+    rng = np.random.default_rng(12)
+    q, k, v = _bf16_qkv(12, 2, 4, 2, 100, 64)
+    for kw in ({"window": 30}, {"softcap": 30.0}, {"causal": False}):
+        out = tensor_core_emulation(q, k, v, **kw)
+        plain = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        assert _chip_smoke().attn_excess(out, plain) <= 1.0, kw
+    last = rng.integers(150, 400, 2)
+    kpos = torch.tensor(_ring(2, 100, last, rng))
+    qpos = torch.tensor(last[:, None].astype(np.int32))
+    q1 = q[:, :, :1]
+    out = tensor_core_emulation(q1, k, v, q_pos=qpos, k_pos=kpos)
+    plain = flash_attention_ref(q1.float(), k.float(), v.float(),
+                                q_pos=qpos, k_pos=kpos)
+    assert _chip_smoke().attn_excess(out, plain) <= 1.0
+
+
+def _decode_inputs(seed, B, H, KV, size, hd, lo, hi):
+    """A decode step over a ring of ``size`` slots after positions drawn
+    in [lo, hi): partly written (slots at -1) or wrapped."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_torch(a) for a in _qkv(seed, B, H, KV, 1, size, hd))
+    last = rng.integers(lo, hi, B)
+    kpos = torch.tensor(_ring(B, size, last, rng))
+    qpos = torch.tensor(last[:, None].astype(np.int32))
+    return q, k, v, {"q_pos": qpos, "k_pos": kpos}
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+@pytest.mark.parametrize("lo,hi", [(20, 200), (700, 1500)],
+                         ids=["partly_written", "wrapped"])
+def test_split_k_combine_equals_plain_version(n_splits, lo, hi):
+    """The split-K routes' arithmetic: per-split partials merged by
+    combine_ref equal the plain version on decode ring positions (float32
+    in another order: 1e-5), for any split count, splits with no visible
+    key (a partly written ring leaves the last ones at -1) included."""
+    q, k, v, pos = _decode_inputs(13, 4, 14, 2, 600, 64, lo, hi)
+    for kw in ({}, {"window": 150}, {"softcap": 30.0}):
+        m, l, o = decode_partials_ref(q, k, v, n_splits=n_splits, **pos,
+                                      **kw)
+        if lo < 200 and n_splits == 8:
+            assert bool((l == 0).any()), "expected a split that sees nothing"
+        kernel_close(combine_ref(m, l, o),
+                     flash_attention_ref(q, k, v, **pos, **kw))
+
+
+def test_split_k_does_not_depend_on_the_batch():
+    """The split count is a function of Skv alone, so a row's partials
+    and its combined output are the same whatever batch it comes in."""
+    q, k, v, pos = _decode_inputs(14, 4, 14, 2, 600, 64, 100, 1500)
+    n = ops.num_splits(k.shape[2])
+    whole = combine_ref(*decode_partials_ref(q, k, v, n_splits=n, **pos))
+    for b in range(4):
+        one = {key: t[b:b + 1] for key, t in pos.items()}
+        alone = combine_ref(*decode_partials_ref(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], n_splits=n, **one))
+        np.testing.assert_allclose(alone.numpy(), whole[b:b + 1].numpy(),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_combine_of_nothing_is_zero():
+    m = torch.full((2, 3), -torch.inf)
+    l = torch.zeros((2, 3))
+    o = torch.full((2, 3, 4), float("nan"))      # never read where l == 0
+    assert torch.equal(combine_ref(m, l, o), torch.zeros((2, 4)))
+
+
+@pytest.mark.parametrize("Sq,group,hd,dtype,want", [
+    (1, 7, 128, torch.bfloat16, "split_k_wgmma"),    # qwen2-7b decode
+    (1, 1, 128, torch.bfloat16, "split_k_wgmma"),    # deepseek decode
+    (1, 4, 128, torch.bfloat16, "split_k_wgmma"),    # jamba decode
+    (9, 7, 64, torch.bfloat16, "split_k_wgmma"),     # 63 rows
+    (1, 7, 128, torch.float32, "split_k"),
+    (1, 2, 256, torch.bfloat16, "split_k"),          # gemma2 decode
+    (64, 1, 128, torch.bfloat16, "split_k_wgmma"),   # 64 rows
+    (65, 1, 128, torch.bfloat16, "wgmma"),
+    (10, 7, 64, torch.bfloat16, "wgmma"),            # 70 rows
+    (1024, 7, 128, torch.bfloat16, "wgmma"),         # qwen2-7b prefill
+    (1024, 7, 128, torch.float32, "cuda_cores"),
+    (700, 2, 256, torch.bfloat16, "cuda_cores"),     # gemma2 prefill
+])
+def test_route_by_shape_and_dtype(Sq, group, hd, dtype, want):
+    assert ops.route(Sq, group, hd, dtype) == want
+
+
+@pytest.mark.parametrize("Skv,want", [(0, 1), (1, 1), (256, 1), (257, 2),
+                                      (600, 3), (2048, 8), (2049, 9)])
+def test_split_count_depends_on_slots_alone(Skv, want):
+    assert ops.num_splits(Skv) == want == max(1, -(-Skv // ops.SPLIT_SLOTS))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_version_on_the_card(dtype):
     """Runs only where there is a card (python3 chip_smoke.py covers the
-    same ground at the serving path's shapes)."""
+    same ground at the serving path's shapes): every route, bf16 at hd
+    64, 128 and 256, prefill tails and split-K decode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(7)
@@ -218,6 +351,9 @@ def test_kernel_matches_plain_version_on_the_card(dtype):
             *[(B, H, KV, S, S, hd, c, w, cp)
               for B, H, KV, S, hd, c, w, cp in KERNEL_CASES],
             (1, 8, 4, 100, 77, 256, False, None, 0.0),
+            (1, 8, 4, 300, 300, 256, True, 100, 30.0),
+            (1, 28, 4, 300, 300, 64, True, None, 0.0),
+            (1, 28, 4, 300, 300, 128, True, None, 0.0),
             (2, 28, 4, 1, 40, 128, True, 16, 0.0)]:
         q, k, v = (torch.tensor(a).to(dtype).cuda()
                    for a in _qkv(8, B, H, KV, Sq, Skv, hd))
@@ -229,16 +365,25 @@ def test_kernel_matches_plain_version_on_the_card(dtype):
         plain = flash_attention_ref(q.float(), k.float(), v.float(),
                                     causal=causal, window=window, softcap=cap)
         kernel_close(out, plain)
-    # decode over a ring cache, through transposed views
-    B, S = 4, 64
-    last = rng.integers(1, 3 * S, B)
-    kpos = torch.tensor(_ring(B, S, last, rng)).cuda()
-    qpos = torch.tensor(last[:, None].astype(np.int32)).cuda()
-    q = torch.randn(B, 1, 28, 128, device="cuda", dtype=dtype)
-    k = torch.randn(B, S, 4, 128, device="cuda", dtype=dtype)
-    v = torch.randn(B, S, 4, 128, device="cuda", dtype=dtype)
-    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    out = flash_attention(*args, q_pos=qpos, k_pos=kpos)
-    plain = flash_attention_ref(*(t.float() for t in args), q_pos=qpos,
-                                k_pos=kpos)
-    kernel_close(out, plain)
+    # decode over a ring cache, through transposed views: one split and
+    # several (partly written and wrapped rings), GQA group 7 and 1
+    for B, S, H, KV, hd, lo, hi in [(4, 64, 28, 4, 128, 1, 3 * 64),
+                                    (3, 700, 28, 4, 128, 20, 500),
+                                    (3, 700, 28, 4, 128, 800, 2000),
+                                    (3, 700, 16, 16, 128, 800, 2000),
+                                    (2, 600, 8, 2, 256, 100, 1200),
+                                    (2, 600, 8, 2, 64, 100, 1200)]:
+        last = rng.integers(lo, hi, B)
+        kpos = torch.tensor(_ring(B, S, last, rng)).cuda()
+        qpos = torch.tensor(last[:, None].astype(np.int32)).cuda()
+        q = torch.randn(B, 1, H, hd, device="cuda", dtype=dtype)
+        k = torch.randn(B, S, KV, hd, device="cuda", dtype=dtype)
+        v = torch.randn(B, S, KV, hd, device="cuda", dtype=dtype)
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        assert ops.route(1, H // KV, hd, dtype).startswith("split_k")
+        out = flash_attention(*args, q_pos=qpos, k_pos=kpos)
+        plain = flash_attention_ref(*(t.float() for t in args), q_pos=qpos,
+                                    k_pos=kpos)
+        kernel_close(out, plain)
+        assert torch.equal(out, flash_attention(*args, q_pos=qpos,
+                                                k_pos=kpos))

@@ -358,7 +358,7 @@ def test_decode_state_crosses_both_ways(ref, pair):
     rmodel, rparams, model, params = pair("gemma2-2b")
     st_r = rmodel.init_decode_state(2, 40)
     st = params_from_numpy(to_np(st_r), "cpu", dtype=None)
-    fresh = model.init_decode_state(2, 40)
+    fresh = model.init_decode_state(2, 40, device="cpu")
     assert tree_map(lambda t: (tuple(t.shape), t.dtype), st) == \
         tree_map(lambda t: (tuple(t.shape), t.dtype), fresh)
     back = state_to_numpy(st)
@@ -371,6 +371,28 @@ def test_decode_state_crosses_both_ways(ref, pair):
     np.testing.assert_array_equal(
         params_to_numpy(tree_map(lambda t: t.float(), bf))["final_norm"][
             "scale"], np.ones(model.cfg.d_model, np.float32))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b"])
+def test_decode_state_defaults_to_the_card(arch):
+    """Without ``device`` the decode caches go to CUDA, as every other
+    entry point of the port does: here, without a card, that raises
+    (there is no fallback); ``device="cpu"`` still allocates on the CPU,
+    and so does the stack's own cache."""
+    model = build_model(reduced_config(arch))
+    if torch.cuda.is_available():
+        leaves = tree_leaves(model.init_decode_state(2, 16))
+        assert all(t.device.type == "cuda" for t in leaves)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.init_decode_state(2, 16)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            T.stack_init_cache(model.cfg, model.kinds, 2, 16, model.dtype)
+    leaves = tree_leaves(model.init_decode_state(2, 16, device="cpu"))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+    leaves = tree_leaves(T.stack_init_cache(model.cfg, model.kinds, 2, 16,
+                                            model.dtype, "cpu"))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +449,7 @@ def test_serve_step_matches_reference(ref, pair):
     step_r = ref.serve.make_serve_step(rmodel)
     step = make_serve_step(model)
     st_r = rmodel.init_decode_state(3, 32)
-    st = model.init_decode_state(3, 32)
+    st = model.init_decode_state(3, 32, device="cpu")
     tok_r = jnp.zeros((3, 1), jnp.int32)
     tok = torch.zeros((3, 1), dtype=torch.int32)
     for _ in range(5):

@@ -456,7 +456,7 @@ def test_decode_matches_forward(pair, arch):
     _, _, model, params = pair(arch)
     toks = torch.tensor(_tokens(47, model.cfg, 2, SEQ)).long()
     full, _ = model.forward_logits(params, {"tokens": toks})
-    state = model.init_decode_state(2, SEQ)
+    state = model.init_decode_state(2, SEQ, device="cpu")
     steps = []
     for t in range(SEQ):
         lg, state = model.decode_step(params, state, toks[:, t:t + 1])
@@ -506,7 +506,7 @@ def test_trees_and_states_cross_both_ways(ref, pair, arch):
     rmodel, _, model, _ = pair(arch)
     st_r = to_np(rmodel.init_decode_state(2, 40))
     st = params_from_numpy(st_r, "cpu", dtype=None)
-    fresh = model.init_decode_state(2, 40)
+    fresh = model.init_decode_state(2, 40, device="cpu")
     assert tree_map(lambda t: (tuple(t.shape), t.dtype), st) == \
         tree_map(lambda t: (tuple(t.shape), t.dtype), fresh)
     for a, b in zip(tree_leaves(state_to_numpy(st)), _leaves(st_r),
