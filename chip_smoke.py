@@ -40,15 +40,23 @@ Phases, each printing one JSON line:
   6. rwkv6_scan
               holds rwkv6_scan against its plain version at the ssm
               serving path's shapes (rwkv6-1.6b prefill B = 1, T = 1326
-              and 1536, H = 32, hd = 64; decode B = 8, T = 1 from a
-              random state) and beyond it (hd 128, bf16 inputs, a split
-              run: T1 then T2 from the state against one run of T),
-              element by element against the plain float32 result;
-              three planted faults (the bonus u dropped, the state
-              updated before the output is read, the input state
-              ignored) must fail that check; and times kernel, plain
-              version and bound (no single PyTorch call computes the
-              recurrence)
+              and 1536, H = 32, hd = 64, on the chunked route; decode B
+              = 8, T = 1 from a random state, on the sequential route)
+              and beyond it (hd 128, bf16 inputs, B = 4 at T = 700, w
+              with exact zeros and 1 - 2^-24, T = 46 and 64 through
+              both routes: a chunk short and one whole), each case
+              naming its route, element by element against the plain
+              float32 result; a run split on the chunk grid (704 of
+              1326) is bitwise one run, the old split point (702) within
+              the limit; the state written in place at a prefill and at
+              decode; five planted faults (the bonus u dropped, the
+              state updated before the output is read, the input state
+              ignored, each chunk replayed from the previous chunk's
+              start state, a suffix product off by one step) must fail
+              that check; and times both routes at the prefills (the
+              sequential one as the "before"), the two routes at short
+              T (where ops.route switches), plain version and bound (no
+              single PyTorch call computes the recurrence)
   7. mamba_scan
               the same for mamba_scan at the hybrid serving path's
               shapes (jamba prefill B = 1, T = 1326 and 1536, D = 8192,
@@ -950,15 +958,20 @@ def _scan_timings(fn, plain, decode, nbytes, flops) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def _rwkv_inputs(gen, B, T, H, hd, dtype, with_state):
+def _rwkv_inputs(gen, B, T, H, hd, dtype, with_state, edge=False):
     """r, k, v ~ N(0, 1) and the decay of rwkv6's init, w =
     exp(-exp(-4 + 0.5 N(0, 1))) (w near 0.98: ~50 steps of memory), u
     its init 0.5 plus noise; a random state ~ 3 N(0, 1), the size the
-    serving path's states reach."""
+    serving path's states reach.  ``edge``: 10% of w exactly 0 and 30%
+    exactly 1 - 2^-24."""
     def rand(*shape):
         return torch.randn(*shape, generator=gen).cuda()
     r, k, v = rand(B, T, H, hd), rand(B, T, H, hd), rand(B, T, H, hd)
     w = torch.exp(-torch.exp(-4 + 0.5 * rand(B, T, H, hd)))
+    if edge:
+        pick = torch.rand(B, T, H, hd, generator=gen).cuda()
+        w = torch.where(pick < 0.1, 0.0, w)
+        w = torch.where(pick > 0.7, 1 - 2.0 ** -24, w)
     u = 0.5 + 0.1 * rand(H, hd)
     s0 = 3 * rand(B, H, hd, hd) if with_state else None
     return [x.to(dtype) for x in (r, k, v, w)] + [u, s0]
@@ -978,43 +991,97 @@ def _rwkv_update_first(r, k, v, w, u, state):
     return torch.stack(outs, 1), S
 
 
-# name, (B, T, H, hd, dtype, from a state), timed (the serving path's
-# shape): rwkv6-1.6b's prefill of the first and the longest prompt, a
-# decode step of 8 slots; then what the path does not run
+def _rwkv_chunked_fault(r, k, v, w, u, state, *, shift_starts=False,
+                        inclusive=False):
+    """Planted faults of the chunked route: ``rwkv6_scan_chunked_ref``
+    with each chunk replayed from the previous chunk's start state
+    (``shift_starts``; chunk 0 from its own), or with the suffix products
+    one step too long, P_s = prod_{s <= tau < L} w_tau (``inclusive``)."""
+    from repro_torch.kernels.rwkv6_scan import ops, ref
+    B, T, H, hd = r.shape
+    rc, kc, vc = (ref.chunks(x, ops.CHUNK, 0.0) for x in (r, k, v))
+    wc = ref.chunks(w, ops.CHUNK, 1.0)
+    dS, D = [], []
+    for c in range(rc.shape[1]):
+        P, Dc = ref.suffix_products(wc[:, c])
+        dS.append(ref.chunk_summary(kc[:, c], vc[:, c],
+                                    P * wc[:, c] if inclusive else P))
+        D.append(Dc)
+    starts, S = ref.chunk_states(torch.stack(dS, 1), torch.stack(D, 1),
+                                 state)
+    if shift_starts:
+        starts = torch.cat([starts[:, :1], starts[:, :-1]], 1)
+    o = ref.chunk_outputs(rc, kc, vc, wc, u, starts)
+    return o.reshape(B, -1, H, hd)[:, :T], S
+
+
+# name, (B, T, H, hd, dtype, from a state, w with exact zeros and 1 -
+# 2^-24), timed (the serving path's shape), launcher (None: the wrapper,
+# on ops.route's route; else that route's launcher, for the chunked
+# kernels' edges the wrapper routes elsewhere): rwkv6-1.6b's prefill of
+# the first and the longest prompt, a decode step of 8 slots; then what
+# the path does not run
 RWKV_CASES = [
-    ("prefill T=1326", (1, 1326, 32, 64, torch.float32, False), True),
-    ("prefill T=1536", (1, 1536, 32, 64, torch.float32, False), True),
-    ("decode B=8", (8, 1, 32, 64, torch.float32, True), True),
+    ("prefill T=1326", (1, 1326, 32, 64, torch.float32, False, False), True,
+     None),
+    ("prefill T=1536", (1, 1536, 32, 64, torch.float32, False, False), True,
+     None),
+    ("decode B=8", (8, 1, 32, 64, torch.float32, True, False), True, None),
     ("hd 128, B=2, T=300, from a state",
-     (2, 300, 4, 128, torch.float32, True), False),
+     (2, 300, 4, 128, torch.float32, True, False), False, None),
+    ("hd 128, bf16 inputs, B=2, T=300",
+     (2, 300, 4, 128, torch.bfloat16, False, False), False, None),
     ("bf16 inputs, T=512, from a state",
-     (1, 512, 32, 64, torch.bfloat16, True), False)]
+     (1, 512, 32, 64, torch.bfloat16, True, False), False, None),
+    ("B=4, T=700, from a state", (4, 700, 32, 64, torch.float32, True, False),
+     False, None),
+    ("w with exact zeros and 1 - 2^-24, T=300, from a state",
+     (1, 300, 32, 64, torch.float32, True, True), False, None),
+    ("T=46, from a state (a chunk short)",
+     (1, 46, 32, 64, torch.float32, True, False), False, None),
+    ("T=46, from a state, sequential kernel",
+     (1, 46, 32, 64, torch.float32, True, False), False, "sequential"),
+    ("T=64, from a state (one whole chunk)",
+     (1, 64, 32, 64, torch.float32, True, False), False, None),
+    ("T=64, from a state, sequential kernel",
+     (1, 64, 32, 64, torch.float32, True, False), False, "sequential")]
+# where ops.route switches: both routes timed at B = 1, H = 32, hd = 64
+RWKV_CROSSOVER_T = (16, 32, 48, 64, 128, 256)
 
 
 def phase_rwkv6_scan() -> dict:
     """rwkv6_scan against its plain version; returns the kernel's record
     for the kernels line (all but ``launches``)."""
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan import ops, rwkv6_scan, \
+        rwkv6_scan_ref
     gen = torch.Generator().manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
     rows, kept, timings, err_max = [], {}, {}, 0.0
-    for name, (B, T, H, hd, dtype, with_state), timed in RWKV_CASES:
+    for name, (B, T, H, hd, dtype, with_state, edge), timed, launcher in \
+            RWKV_CASES:
         r, k, v, w, u, s0 = _rwkv_inputs(gen, B, T, H, hd, dtype,
-                                         with_state)
+                                         with_state, edge)
+        route = launcher or ops.route(B, T, H, hd)
+
+        def scan(r=r, k=k, v=v, w=w, u=u, s0=s0, launcher=launcher):
+            if launcher is None:
+                return rwkv6_scan(r, k, v, w, u, s0)
+            return ops._launch(launcher, r, k, v, w, u, s0, None)
         with torch.no_grad():
-            out = rwkv6_scan(r, k, v, w, u, s0)
+            out = scan()
             plain = rwkv6_scan_ref(r.float(), k.float(), v.float(),
                                    w.float(), u, s0)
             torch.cuda.synchronize()
             reading = _scan_reading(out, plain)
             check(_scan_ok(reading), f"rwkv6_scan {name}: {reading}")
-            again = rwkv6_scan(r, k, v, w, u, s0)
+            again = scan()
             check(all(torch.equal(a, b) for a, b in zip(out, again)),
                   f"rwkv6_scan {name}: a rerun is not bitwise equal")
         err_max = max(err_max, reading["max_abs_err"])
         kept[name] = (r, k, v, w, u, s0, out, plain)
-        rows.append({"case": name, "B": B, "T": T, "H": H, "hd": hd,
-                     "dtype": str(dtype)[6:], "from_state": with_state,
+        rows.append({"case": name, "route": route, "B": B, "T": T, "H": H,
+                     "hd": hd, "dtype": str(dtype)[6:],
+                     "from_state": with_state, "edge_decay": edge,
                      **reading})
         if not timed:
             continue
@@ -1025,27 +1092,55 @@ def phase_rwkv6_scan() -> dict:
         # + v_j sum_i r_i u_i k_i (2 hd^2 + 5 hd), S_ij <- w_i S_ij +
         # k_i v_j (3 hd^2)
         flops = (5 * hd * hd + 5 * hd) * B * T * H
-        timings[name] = _scan_timings(
-            lambda: rwkv6_scan(r, k, v, w, u, s0),
-            lambda: rwkv6_scan_ref(r, k, v, w, u, s0),
-            T == 1, nbytes, flops)
+        timings[name] = {"route": route, **_scan_timings(
+            scan, lambda: rwkv6_scan_ref(r, k, v, w, u, s0),
+            T == 1, nbytes, flops)}
+        if route == "chunked":
+            # the sequential kernel on the same inputs: the "before"
+            seq = device_ms(lambda: ops._launch("sequential", r, k, v, w,
+                                                u, s0, None),
+                            calls=20, replays=3)
+            timings[name].update(sequential_ms=seq, sequential_over_chunked=
+                                 seq / timings[name]["ms"])
+    crossover = {}
+    for T in RWKV_CROSSOVER_T:
+        r, k, v, w, u, s0 = _rwkv_inputs(gen, 1, T, 32, 64, f32, False)
+        crossover[T] = {"route": ops.route(1, T, 32, 64), **{
+            name: device_ms(lambda: ops._launch(name, r, k, v, w, u, s0,
+                                                None), calls=20, replays=3)
+            for name in ("sequential", "chunked")}}
 
-    # a split run: T1 steps, then the rest from the state they leave
-    r, k, v, w, u, s0, (o, s), _ = kept["prefill T=1326"]
-    T1 = r.shape[1] * 53 // 100
+    r, k, v, w, u, s0, (o, s), plain = kept["prefill T=1326"]
+    T = r.shape[1]
+    # a split on the chunk grid (both halves chunked): bitwise one run
+    T1 = 11 * ops.CHUNK
+    check({ops.route(1, T1, 32, 64), ops.route(1, T - T1, 32, 64)} ==
+          {"chunked"}, f"rwkv6_scan: a split at {T1} leaves the chunked "
+          f"route")
     with torch.no_grad():
         o1, s1 = rwkv6_scan(r[:, :T1], k[:, :T1], v[:, :T1], w[:, :T1], u)
         o2, s2 = rwkv6_scan(r[:, T1:], k[:, T1:], v[:, T1:], w[:, T1:], u,
                             s1)
     split = torch.equal(torch.cat([o1, o2], 1), o) and torch.equal(s2, s)
     check(split, f"rwkv6_scan: {T1} steps then the rest from the state "
-          f"differ from one run of {r.shape[1]}")
-    # the state written over the input state in place
-    r, k, v, w, u, s0, (o, s), _ = kept["decode B=8"]
-    s_in = s0.clone()
+          f"differ from one run of {T}")
+    # off the grid (the old split point): within the limit
+    T1 = T * 53 // 100
     with torch.no_grad():
-        rwkv6_scan(r, k, v, w, u, s_in, state_out=s_in)
-    check(torch.equal(s_in, s), "rwkv6_scan: the in-place state differs")
+        o1, s1 = rwkv6_scan(r[:, :T1], k[:, :T1], v[:, :T1], w[:, :T1], u)
+        o2, s2 = rwkv6_scan(r[:, T1:], k[:, T1:], v[:, T1:], w[:, T1:], u,
+                            s1)
+    off_grid = _scan_reading((torch.cat([o1, o2], 1), s2), plain)
+    check(_scan_ok(off_grid), f"rwkv6_scan: {T1} steps then the rest: "
+          f"{off_grid}")
+    # the state written over the input state in place, prefill and decode
+    for name in ("B=4, T=700, from a state", "decode B=8"):
+        r, k, v, w, u, s0, (o, s), _ = kept[name]
+        s_in = s0.clone()
+        with torch.no_grad():
+            o_in, _ = rwkv6_scan(r, k, v, w, u, s_in, state_out=s_in)
+        check(torch.equal(s_in, s) and torch.equal(o_in, o),
+              f"rwkv6_scan {name}: the in-place state differs")
 
     r, k, v, w, u, s0, _, plain = kept["decode B=8"]
     with torch.no_grad():
@@ -1056,6 +1151,14 @@ def phase_rwkv6_scan() -> dict:
                 _rwkv_update_first(r, k, v, w, u, s0), plain),
             "input state ignored": _scan_reading(
                 rwkv6_scan(r, k, v, w, u), plain)}
+        r, k, v, w, u, s0, _, plain = kept["prefill T=1326"]
+        faults.update({
+            "each chunk replayed from the previous chunk's start state":
+                _scan_reading(_rwkv_chunked_fault(r, k, v, w, u, s0,
+                                                  shift_starts=True), plain),
+            "a suffix product off by one step": _scan_reading(
+                _rwkv_chunked_fault(r, k, v, w, u, s0, inclusive=True),
+                plain)})
     for fault, reading in faults.items():
         check(not _scan_ok(reading), f"planted fault '{fault}' passed the "
               f"rwkv6_scan check: {reading}")
@@ -1063,10 +1166,12 @@ def phase_rwkv6_scan() -> dict:
           "limit": f"{SCAN_ATOL} * max(1, |plain|max) + rtol * |plain|, "
                    "element by element",
           "rtol": {"float32": SCAN_RTOL[f32], "bfloat16": SCAN_RTOL[bf16]},
-          "cases": rows, "split_bitwise": split, "in_place": True,
+          "cases": rows, "split_on_chunk_grid_bitwise": split,
+          "split_off_grid": off_grid, "in_place": True,
           "planted_faults": faults})
     emit({"phase": "rwkv6_scan_times", "kernel": "rwkv6_scan",
-          "timings": timings})
+          "timings": timings, "route_crossover": crossover,
+          "chunked_min_t": ops.CHUNKED_MIN_T})
     main = timings["prefill T=1536"]
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6_scan/csrc/"
@@ -1076,9 +1181,13 @@ def phase_rwkv6_scan() -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "eager_ms": main["eager_ms"],
+            "kernel_route": main["route"],
+            "sequential_ms": main["sequential_ms"],
             "at": {"shape": "rwkv6-1.6b prefill, B=1, T=1536, H=32, hd=64, "
                             "float32 inputs",
                    "ms": "device time per call, CUDA graph of 20 calls",
+                   "sequential_ms": "the sequential route on the same "
+                                    "inputs, the same way",
                    "library": "none: no single PyTorch call computes "
                               "this recurrence"},
             "decode": timings["decode B=8"], "timings": timings}
@@ -1314,6 +1423,12 @@ def phase_profile(pcfg) -> None:
           **_profile_rows(prof, wall_ms, steps)})
 
 
+# the names of the port's kernels begin so (csrc/*.cu)
+PORT_KERNELS = ("vfl_matmul_kernel", "flash_attention",
+                "decode_partial_kernel", "decode_combine_kernel",
+                "moe_router_kernel", "rwkv6_", "mamba_scan_kernel")
+
+
 def _profile_rows(prof, wall_ms, steps) -> dict:
     """Device time by kernel, and the device's busy share of the wall
     time, from a torch.profiler run over ``steps`` steps."""
@@ -1325,13 +1440,18 @@ def _profile_rows(prof, wall_ms, steps) -> dict:
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
+
+    def listed(picked):
+        return [{"kernel": k[:80], "ms_per_step": us / 1e3 / steps,
+                 "calls_per_step": n / steps} for us, k, n in picked]
     return {"wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps if rows else None,
             "device_busy_share": device_ms / wall_ms if rows else None,
             "kernels_per_step": sum(r[2] for r in rows) / steps,
-            "top_device_kernels": [
-                {"kernel": k[:80], "ms_per_step": us / 1e3 / steps,
-                 "calls_per_step": n / steps} for us, k, n in rows[:10]]}
+            "top_device_kernels": listed(rows[:10]),
+            "port_kernels": listed(r for r in rows if r[1].startswith(
+                tuple("void (anonymous namespace)::" + stem
+                      for stem in PORT_KERNELS)))}
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,21 @@ in the decode cache, and decode starts from it and writes the new state
 over it in place (``state_out=state``).  It takes any T >= 1 (the
 Pallas kernel asks T % chunk == 0) and hd 64 or 128.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
+On a CUDA tensor it launches the hand-written Hopper kernels
 (``csrc/rwkv6_scan.cu``, built at first use) or raises; on a CPU tensor
-it runs the plain version in ``ref.py``.  There is no other path.
+it runs the plain version ``rwkv6_scan_ref`` in ``ref.py``.  There is
+no other path.  On the card ``route(B, T, H, hd)``, a function of the
+shape alone, picks the kernels:
+
+- ``sequential``: one block per (b, h) walks the T steps in order; a
+  decode step (T = 1) and any T under ``CHUNKED_MIN_T``.
+- ``chunked``: three kernels over chunks of ``CHUNK`` steps (each
+  chunk's decay products and summary, the scan over chunks into a
+  float32 scratch buffer of every chunk's start state, then every
+  chunk's outputs replayed from its start state in parallel); the
+  algorithm of ``rwkv6_scan_chunked_ref``.  Prefills.
+
+Either route adds one to ``rwkv6_scan.launches`` per call.
 """
 from __future__ import annotations
 
@@ -26,6 +38,17 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# the chunked kernels' chunk length (rwkv6_scan.cu's CHUNK), and the
+# shortest T the wrapper sends them: the sequential kernel wins at T = 16
+# and loses from T = 32 on (chip_smoke.py's ``route_crossover`` times both
+# at B = 1, H = 32, hd = 64)
+CHUNK = 64
+CHUNKED_MIN_T = 32
+
+
+def route(B, T, H, hd) -> str:
+    """The kernels a CUDA call of r [B, T, H, hd] runs (module doc)."""
+    return "chunked" if T >= CHUNKED_MIN_T else "sequential"
 
 
 def _check(r, k, v, w, u, state, state_out):
@@ -56,40 +79,71 @@ def _check(r, k, v, w, u, state, state_out):
         raise ValueError(f"rwkv6_scan inputs on {sorted(map(str, devices))}")
 
 
+# C launcher -> its arguments after the four input pointers
+_LAUNCHERS = {
+    "rwkv6_scan_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
+    "rwkv6_scan_chunked_launch":
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel(name):
+    """The C launcher ``name``, its library built at first use."""
     from repro_torch.kernels import build
-    fn = build.load("rwkv6_scan").rwkv6_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+    fn = getattr(build.load("rwkv6_scan"), name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + _LAUNCHERS[name] + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(r, k, v, w, u, state, state_out):
+def _aligned(t):
+    """``t`` contiguous with its base on 16 bytes, as the chunked
+    kernels' cp.async reads it (a copy only where not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(route_name, r, k, v, w, u, state, state_out):
+    """The kernels of ``route_name`` on checked CUDA inputs; counts one
+    launch.  ``rwkv6_scan`` calls it with ``route(*r.shape)``."""
     B, T, H, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"the rwkv6_scan kernel takes head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    if B * H > 2 ** 31 - 1:
-        raise ValueError(f"B * H = {B * H} exceeds the kernel's grid")
-    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    nC = -(-T // CHUNK)
+    if B * H * nC > 2 ** 31 - 1:
+        raise ValueError(f"B * H * chunks = {B * H * nC} exceeds the "
+                         f"kernel's grid")
+    r, k, v, w = (_aligned(t) for t in (r, k, v, w))
     u = u.float().contiguous()
     if state is not None:
         state = state.contiguous()
     s_out = state_out if state_out is not None else torch.empty(
         (B, H, hd, hd), dtype=torch.float32, device=r.device)
     o = torch.empty_like(r)
-    fn = _kernel()
+    args = [r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state is None else state.data_ptr(),
+            o.data_ptr(), s_out.data_ptr()]
+    if route_name == "chunked":
+        slots = torch.empty((B, H, nC, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        decay = torch.empty((B, H, nC, hd), dtype=torch.float32,
+                            device=r.device)
+        args += [slots.data_ptr(), decay.data_ptr(), B, T, H, hd, CHUNK]
+        fn = _kernel("rwkv6_scan_chunked_launch")
+    elif route_name == "sequential":
+        args += [B, T, H, hd]
+        fn = _kernel("rwkv6_scan_launch")
+    else:
+        raise ValueError(f"unknown rwkv6_scan route {route_name!r}")
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), None if state is None else state.data_ptr(),
-                 o.data_ptr(), s_out.data_ptr(), B, T, H, hd,
-                 int(r.dtype == torch.bfloat16), stream)
+        err = fn(*args, int(r.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"rwkv6_scan {route_name} launch failed: CUDA "
+                           f"error {err}")
     rwkv6_scan.launches += 1
     return o, s_out
 
@@ -99,7 +153,7 @@ def rwkv6_scan(r, k, v, w, u, state=None, *, state_out=None):
     doc): (o [B, T, H, hd], state [B, H, hd, hd] float32)."""
     _check(r, k, v, w, u, state, state_out)
     if r.device.type == "cuda":
-        return _launch(r, k, v, w, u, state, state_out)
+        return _launch(route(*r.shape), r, k, v, w, u, state, state_out)
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, u, state, state_out=state_out)
     raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
