@@ -10,8 +10,11 @@ Phases, each printing one JSON line:
   2. build    builds every kernel from the sources in this checkout
   3. kernel   holds each kernel against its plain PyTorch version at
               the shapes the training path gives it (forward, dx, dW,
-              gate 0 and 1) and times kernel, plain version, bound and
-              one library call on the same inputs
+              gate 0 and 1), each case also through the other of
+              vfl_matmul's two kernels (wave, ring: bitwise equal), and
+              times kernel, plain version, bound, one library call and
+              an empty kernel (the launch floor) on the same inputs,
+              with the launch plan at each timed shape
   4. attn_kernel
               holds flash_attention against its plain version at the
               serving paths' shapes (qwen2-7b prefill at S = 128, 1024,
@@ -63,7 +66,17 @@ Phases, each printing one JSON line:
               N = 16; decode B = 8, T = 1 from a random h) and beyond
               (N = 8, tails of D, bf16 inputs, a split run); planted
               faults: y read from h_{t-1}, the input h ignored, the
-              last channel tile short one channel
+              last channel tile short one channel; then the same for
+              mamba_scan_fused, the serving path's route (dt, x, B, C,
+              A in, a and bx formed in the kernel), against its plain
+              version: jamba's bf16 prefills and decode, a float32
+              model, N = 8 with D = 1000, D = 8190, B = 2; a split run
+              and reruns bitwise, the state in place; four planted
+              faults (dt one step late, y read from h_{t-1}, the input
+              h ignored, the last channel tile short); times beside the
+              "before" (the discretisation + the unfused kernel) on the
+              same inputs, and the bound by bytes, float32 operations
+              and exponentials
   8. train    trains the paper's MNIST federation (784 -> 3x10 -> 10,
               5 clients, 70,000 samples, 2 rounds) through the kernel
               lane with every launch count set to 0 just before and
@@ -116,11 +129,12 @@ Phases, each printing one JSON line:
               jamba-v0.1-52b at full width and cut depth (16 of its 32
               layers: 103.15 GB of bf16 weights do not fit the card's
               80 GB; 14 Mamba, 2 attention, 8 MoE layers) the same way:
-              mamba_scan 14, flash_attention 2 and moe_router 8
-              launches per prefill and decode step; rerun bitwise; every
-              Mamba layer's scan held against the plain version on the
-              first prompt's prefill (planted faults: y read from
-              h_{t-1}, the last channel tile short one channel); logits
+              mamba_scan_fused 14 (unfused mamba_scan 0),
+              flash_attention 2 and moe_router 8 launches per prefill
+              and decode step; rerun bitwise; every Mamba layer's fused
+              scan held against its plain version on the first prompt's
+              prefill (planted faults: y read from h_{t-1}, dt one step
+              late, the last channel tile short one channel); logits
               against the plain scan; the state carry; profiles
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
@@ -146,6 +160,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+# exponentials (MUFU.EX2, one an expf) a clock on each SM: the CUDA C++
+# Programming Guide's throughput of base-2 exponentials at compute
+# capability 9.0; the rate is this times the SMs times the SM clock read
+# from the card in phase_device
+SFU_EXP_PER_SM_CLOCK = 16
+SFU_EXP_PER_S = None
 
 # kernel vs plain version: float32 with a different summation order,
 # the tolerance tests/test_kernels.py uses for float32
@@ -316,11 +336,21 @@ def phase_device() -> dict:
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sm_mhz = float(clock.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    global SFU_EXP_PER_S
+    SFU_EXP_PER_S = SFU_EXP_PER_SM_CLOCK * sms * sm_mhz * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info = {"phase": "device", "nvidia_smi": card,
             "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
+            "sms": sms, "max_sm_clock_mhz": sm_mhz,
+            "sfu_exp_per_s": SFU_EXP_PER_S,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
             "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32}
@@ -384,11 +414,15 @@ def _check_grads(name, fn, fn_ref, x, w, gen):
             assert_close(f"{name} dW", dw, dw_r))
 
 
+# rows at which both vfl_matmul kernels are timed (ops.WAVE_MAX_M)
+VFL_CROSSOVER_M = (64, 256, 1024, 2048, 4096)
+
+
 def phase_kernel() -> dict:
     """vfl_matmul against its plain version; returns the kernel's
     record for the kernels line (all but ``launches``)."""
     from repro_torch.kernels.vfl_matmul import (
-        vfl_matmul, vfl_matmul_clients, vfl_matmul_clients_ref,
+        ops, vfl_matmul, vfl_matmul_clients, vfl_matmul_clients_ref,
         vfl_matmul_ref)
     gen = torch.Generator().manual_seed(0)
     mnist = [168, 168, 168, 140, 140]      # 5 clients, image rows dealt
@@ -407,7 +441,21 @@ def phase_kernel() -> dict:
             lambda a, b: vfl_matmul_clients_ref(a, b, offs, offs, sizes),
             x, w, gen)
         y_err, g_err = max(y_err, e[0]), max(g_err, *e[1:])
+        # the kernel ops.plan picks, and the other one on the same inputs:
+        # one summation order, so the same bits
+        n, kw = w.shape[:2]
+        picked = ops.plan(M, x.shape[1], kw, N, n)
+        other = ops.plan(ops.WAVE_MAX_M + 1 if picked.kernel == "wave"
+                         else min(M, ops.WAVE_MAX_M), x.shape[1], kw, N, n)
+        with torch.no_grad():
+            ys = [ops._launch(x, w, xo, wo, sz, launch=p)
+                  for p in (picked, other)]
+        check(other.kernel != picked.kernel and torch.equal(*ys),
+              f"vfl_matmul {name}: the {picked.kernel} and {other.kernel} "
+              f"kernels differ")
         rows.append({"case": name, "M": M, "sizes": sizes, "N": N,
+                     "kernel": picked.kernel,
+                     "other_kernel_bitwise": True,
                      "max_abs_err": {"y": e[0], "dx": e[1], "dW": e[2]}})
 
     # the JAX-signature wrapper: x_off = 0, w_off = offset (unaligned)
@@ -432,7 +480,9 @@ def phase_kernel() -> dict:
     emit({"phase": "kernel", "kernel": "vfl_matmul", "tol": KERNEL_TOL,
           "cases": rows, "gates": "ok"})
 
-    # times at the training path's shapes: a batch and the test set
+    # times at the training path's shapes: a batch and the test set; the
+    # launch floor: an empty kernel in the same CUDA-graph harness
+    floor_ms = device_ms(lambda: ops.empty_launch())
     timings = []
     for M, iters in ((64, 500), (14000, 100)):
         x, w, (xo, wo, sz), offs = _clients_case(M, mnist, 10, gen)
@@ -460,13 +510,34 @@ def phase_kernel() -> dict:
         flops = 2 * M * N * k_sum
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
+        p = ops.plan(M, kx, kx, N, n)
         timings.append({"M": M, "sizes": mnist, "N": N, **times,
+                        "launch_floor_ms": floor_ms,
+                        "plan": {"kernel": p.kernel, "blocks":
+                                 p.grid[0] * p.grid[1] * p.grid[2],
+                                 "threads": p.threads,
+                                 "smem_bytes": p.smem},
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops
                         else "operations",
                         "bytes": nbytes, "flops": flops})
+    # where ops.plan switches kernels: both timed at mnist's layout
+    crossover = {}
+    for M in VFL_CROSSOVER_M:
+        x, w, (xo, wo, sz), _ = _clients_case(M, mnist, 10, gen)
+        picked = ops.plan(M, x.shape[1], x.shape[1], 10, len(mnist))
+        plans = {"wave": ops.plan(min(M, ops.WAVE_MAX_M), x.shape[1],
+                                  x.shape[1], 10, len(mnist)),
+                 "ring": ops.plan(max(M, ops.WAVE_MAX_M + 1), x.shape[1],
+                                  x.shape[1], 10, len(mnist))}
+        with torch.no_grad():
+            crossover[M] = {"picked": picked.kernel, **{
+                name: device_ms(lambda p=p: ops._launch(x, w, xo, wo, sz,
+                                                        launch=p))
+                for name, p in plans.items()}}
     emit({"phase": "kernel_times", "kernel": "vfl_matmul",
-          "timings": timings})
+          "timings": timings, "crossover": crossover,
+          "wave_max_m": ops.WAVE_MAX_M})
     batch = timings[0]       # the shape of ~all launches on the path
     return {"name": "vfl_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/vfl_matmul/csrc/vfl_matmul.cu",
@@ -476,6 +547,7 @@ def phase_kernel() -> dict:
             "bound_ms": batch["bound_ms"], "bound_by": batch["bound_by"],
             "library_ms": batch["library_ms"],
             "eager_ms": batch["eager_ms"],
+            "launch_floor_ms": floor_ms, "plan": batch["plan"],
             "at": {"M": batch["M"], "sizes": mnist, "N": batch["N"],
                    "ms": "device time per call, CUDA graph of 100 calls",
                    "eager_ms": "per call issued from Python"},
@@ -939,23 +1011,27 @@ def _scan_ok(r) -> bool:
     return r["excess"] <= 1.0 and r["state_excess"] <= 1.0
 
 
-def _scan_timings(fn, plain, decode, nbytes, flops) -> dict:
+def _scan_timings(fn, plain, decode, nbytes, flops, exps=0) -> dict:
     """Kernel and plain version timed on the same inputs (CUDA graphs of
     100 calls at a decode step; at a prefill 20 kernel calls and one
     call of the plain version's Python loop over T), eager, and the
-    bound: the bytes over HBM_BYTES_PER_S, the float32 operations over
-    FP32_FLOP_PER_S."""
+    bound: the largest of the bytes over HBM_BYTES_PER_S, the float32
+    operations over FP32_FLOP_PER_S and the exponentials over
+    SFU_EXP_PER_S (``bound_detail`` names which)."""
     calls, plain_calls = (100, 100) if decode else (20, 1)
     times = {"ms": device_ms(fn, calls=calls, replays=3),
              "eager_ms": eager_ms(fn, calls),
              "plain_ms": device_ms(plain, calls=plain_calls, replays=2),
              "plain_eager_ms": eager_ms(plain, plain_calls),
              "library_ms": None}
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return {**times, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32 operations": flops / FP32_FLOP_PER_S * 1e3,
+             "exponentials": exps / SFU_EXP_PER_S * 1e3 if exps else 0.0}
+    detail = max(parts, key=parts.get)
+    return {**times, "bound_ms": parts[detail],
+            "bound_by": "bytes" if detail == "bytes" else "operations",
+            "bound_detail": detail, "bound_parts_ms": parts,
+            "bytes": nbytes, "flops": flops, "exps": exps}
 
 
 def _rwkv_inputs(gen, B, T, H, hd, dtype, with_state, edge=False):
@@ -1228,6 +1304,171 @@ def _last_channel_short(out):
     return y, h
 
 
+def _fused_inputs(gen, B, T, D, N, dtype, with_state):
+    """The fused scan's inputs as the model makes them: dt = softplus(N(0,
+    1)) float32, x, B, C ~ N(0, 1) in the model's dtype with B and C
+    views of one projection row (jamba's dt_rank 256 columns, then B,
+    then C), A = -(1 .. N) for every channel; a random h ~ N(0, 1)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+    dt = torch.nn.functional.softplus(rand(B, T, D))
+    x = rand(B, T, D).to(dtype)
+    proj = rand(B, T, 256 + 2 * N).to(dtype)
+    A = -torch.exp(torch.log(torch.arange(
+        1, N + 1, dtype=torch.float32, device=dt.device))).expand(
+            D, N).contiguous()
+    h0 = rand(B, D, N) if with_state else None
+    return dt, x, proj[..., 256:256 + N], proj[..., 256 + N:], A, h0
+
+
+def _fused_y_from_previous(dt, x, Bm, Cm, A, h0=None, *, h_out=None):
+    """A planted fault of the fused scan: y read from h_{t-1}, as
+    ``_mamba_y_from_previous``."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_fused
+    shifted = torch.cat([Cm[:, 1:], Cm[:, -1:]], 1)
+    y, h = mamba_scan_fused(dt, x, Bm, shifted, A, h0, h_out=h_out)
+    first = torch.zeros_like(y[:, :1]) if h0 is None else torch.einsum(
+        "bdn,bn->bd", h0, Cm[:, 0].float())[:, None]
+    return torch.cat([first, y[:, :-1]], 1), h
+
+
+def _fused_dt_late(dt, x, Bm, Cm, A, h0=None, *, h_out=None):
+    """A planted fault: dt one step late, as a staging ring off by one
+    would pair it: step t discretised with dt_{t-1} (dt_{-1} = 0)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_fused
+    late = torch.cat([torch.zeros_like(dt[:, :1]), dt[:, :-1]], 1)
+    return mamba_scan_fused(late, x, Bm, Cm, A, h0, h_out=h_out)
+
+
+def _fused_short(dt, x, Bm, Cm, A, h0=None, *, h_out=None):
+    """A planted fault: the fused kernel's last channel tile one channel
+    short."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_fused
+    return _last_channel_short(mamba_scan_fused(dt, x, Bm, Cm, A, h0,
+                                                h_out=h_out))
+
+
+def _discretise_then_scan(dt, x, Bm, Cm, A, h0=None):
+    """The "before": the model's discretisation (a, bx materialised in
+    float32) and the unfused kernel."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    a = torch.exp(dt[..., None] * A)
+    bx = (dt * x)[..., None] * Bm[..., None, :].to(dt.dtype)
+    return mamba_scan(a, bx, Cm.float(), h0)
+
+
+def _fused_work(dt, x, Bm, A, h0):
+    """(bytes, float32 operations, exponentials) the fused function needs:
+    dt, x, B, C, A and the input state read once, y and the state written
+    once; a (b, t, d, n) step is dt A, (dt x) B, a h + bx (2), h C and
+    its sum (2), plus dt x once a (b, t, d); one exponential."""
+    B, T, D = dt.shape
+    N = A.shape[1]
+    size = x.element_size()
+    nbytes = (4 * B * T * D + size * B * T * D + 2 * size * B * T * N +
+              4 * D * N + (2 if h0 is not None else 1) * 4 * B * D * N +
+              4 * B * T * D)
+    return nbytes, 6 * B * T * D * N + B * T * D, B * T * D * N
+
+
+# name, (B, T, D, N, model dtype, from a state), timed (the serving
+# path's shape): jamba's prefill of the first and the longest prompt in
+# its bf16 (dt float32, x, B and C bf16), a decode step of 8 slots; then
+# what the path does not run
+FUSED_SPLIT_CASE = "N=8, D=1000 (a tile of 40 channels), B=2, T=300"
+FUSED_TAIL_CASE = "D=8190 (staged by plain loads; the last tile 30 " \
+    "channels), T=64"
+FUSED_CASES = [
+    ("prefill T=1326", (1, 1326, 8192, 16, torch.bfloat16, False), True),
+    ("prefill T=1536", (1, 1536, 8192, 16, torch.bfloat16, False), True),
+    ("decode B=8", (8, 1, 8192, 16, torch.bfloat16, True), True),
+    ("float32 model, T=300, from a state",
+     (1, 300, 8192, 16, torch.float32, True), False),
+    (FUSED_SPLIT_CASE, (2, 300, 1000, 8, torch.float32, True), False),
+    (FUSED_TAIL_CASE, (1, 64, 8190, 16, torch.bfloat16, True), False),
+    ("B=2, T=200, from a state", (2, 200, 8192, 16, torch.bfloat16, True),
+     False)]
+
+
+def _phase_mamba_fused(gen) -> dict:
+    """mamba_scan_fused against its plain version: the cases, a split run
+    and reruns bitwise, the state in place, four planted faults, and the
+    times beside the "before" (the discretisation + the unfused kernel)
+    on the same inputs in one CUDA graph."""
+    from repro_torch.kernels.mamba_scan import (
+        mamba_scan_fused, mamba_scan_fused_ref)
+    rows, kept, timings, err_max = [], {}, {}, 0.0
+    for name, (B, T, D, N, dtype, with_state), timed in FUSED_CASES:
+        args = _fused_inputs(gen, B, T, D, N, dtype, with_state)
+        with torch.no_grad():
+            out = mamba_scan_fused(*args)
+            plain = mamba_scan_fused_ref(*args)
+            torch.cuda.synchronize()
+            reading = _scan_reading(out, plain)
+            check(_scan_ok(reading), f"mamba_scan_fused {name}: {reading}")
+            again = mamba_scan_fused(*args)
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"mamba_scan_fused {name}: a rerun is not bitwise equal")
+        err_max = max(err_max, reading["max_abs_err"])
+        kept[name] = (args, out, plain)
+        rows.append({"case": name, "B": B, "T": T, "D": D, "N": N,
+                     "model_dtype": str(dtype)[6:], "from_state": with_state,
+                     **reading})
+        if not timed:
+            continue
+        nbytes, flops, exps = _fused_work(*args[:3], args[4], args[5])
+        with torch.no_grad():
+            timings[name] = _scan_timings(
+                lambda: mamba_scan_fused(*args),
+                lambda: mamba_scan_fused_ref(*args), T == 1, nbytes, flops,
+                exps)
+            # the "before" on the same inputs: graphs of 5 calls at a
+            # prefill (each holds 2 x 0.8 GB of a and bx at T = 1536)
+            timings[name]["before_ms"] = device_ms(
+                lambda: _discretise_then_scan(*args),
+                calls=100 if T == 1 else 5, replays=3)
+        timings[name]["before_over_fused"] = \
+            timings[name]["before_ms"] / timings[name]["ms"]
+
+    args, (y, h), plain = kept[FUSED_SPLIT_CASE]
+    dt, x, Bm, Cm, A, h0 = args
+    T1 = dt.shape[1] * 41 // 100
+    with torch.no_grad():
+        y1, h1 = mamba_scan_fused(dt[:, :T1], x[:, :T1], Bm[:, :T1],
+                                  Cm[:, :T1], A, h0)
+        y2, h2 = mamba_scan_fused(dt[:, T1:], x[:, T1:], Bm[:, T1:],
+                                  Cm[:, T1:], A, h1)
+    split = torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+    check(split, f"mamba_scan_fused: {T1} steps then the rest from the "
+          f"state differ from one run of {dt.shape[1]}")
+    for name in ("decode B=8", "B=2, T=200, from a state"):
+        args, (y, h), _ = kept[name]
+        h_in = args[5].clone()
+        with torch.no_grad():
+            y_in, _ = mamba_scan_fused(*args[:5], h_in, h_out=h_in)
+        check(torch.equal(h_in, h) and torch.equal(y_in, y),
+              f"mamba_scan_fused {name}: the in-place state differs")
+
+    with torch.no_grad():
+        args, _, plain = kept[FUSED_SPLIT_CASE]
+        faults = {
+            "dt one step late": _scan_reading(_fused_dt_late(*args), plain),
+            "y read from h_{t-1}": _scan_reading(
+                _fused_y_from_previous(*args), plain)}
+        args, _, plain = kept["decode B=8"]
+        faults["input h ignored"] = _scan_reading(
+            mamba_scan_fused(*args[:5]), plain)
+        args, out, plain = kept[FUSED_TAIL_CASE]
+        faults["last channel tile short one channel"] = _scan_reading(
+            _last_channel_short(out), plain)
+    for fault, reading in faults.items():
+        check(not _scan_ok(reading), f"planted fault '{fault}' passed the "
+              f"mamba_scan_fused check: {reading}")
+    return {"cases": rows, "split_bitwise": split, "in_place": True,
+            "planted_faults": faults, "timings": timings,
+            "max_abs_err": err_max}
+
+
 # name, (B, T, D, N, dtype, from a state), timed (the serving path's
 # shape): jamba's prefill of the first and the longest prompt, a decode
 # step of 8 slots; then what the path does not run
@@ -1311,21 +1552,41 @@ def phase_mamba_scan() -> dict:
           "planted_faults": faults})
     emit({"phase": "mamba_scan_times", "kernel": "mamba_scan",
           "timings": timings})
-    main = timings["prefill T=1536"]
+    fused = _phase_mamba_fused(gen)
+    fused_times = fused.pop("timings")
+    emit({"phase": "mamba_scan_fused", "kernel": "mamba_scan_fused",
+          "limit": f"{SCAN_ATOL} * max(1, |plain|max) + rtol * |plain|, "
+                   "element by element against the float32 output",
+          "rtol": SCAN_RTOL[f32], **fused})
+    emit({"phase": "mamba_scan_fused_times", "kernel": "mamba_scan_fused",
+          "timings": fused_times})
+    main = fused_times["prefill T=1536"]
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/mamba_scan/csrc/"
                       "mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:55",
-            "max_abs_err": err_max,
+            "max_abs_err": max(err_max, fused["max_abs_err"]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_detail": main["bound_detail"],
             "library_ms": None, "eager_ms": main["eager_ms"],
+            "before_ms": main["before_ms"],
             "at": {"shape": "jamba-v0.1-52b prefill, B=1, T=1536, D=8192, "
-                            "N=16, float32 inputs",
+                            "N=16, dt float32, x, B, C bf16, through "
+                            "mamba_scan_fused (the serving path's route)",
                    "ms": "device time per call, CUDA graph of 20 calls",
+                   "before_ms": "the model's discretisation and the "
+                                "unfused kernel on the same inputs, CUDA "
+                                "graph of 5 calls",
                    "library": "none: no single PyTorch call computes "
                               "this recurrence"},
-            "decode": timings["decode B=8"], "timings": timings}
+            "routes": {
+                "fused": {"entry": "mamba_scan_fused", "launches": None,
+                          "timings": fused_times},
+                "unfused": {"entry": "mamba_scan (the Pallas signature: "
+                                     "a, bx, c)", "launches": None,
+                            "timings": timings}},
+            "decode": fused_times["decode B=8"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1424,9 +1685,20 @@ def phase_profile(pcfg) -> None:
 
 
 # the names of the port's kernels begin so (csrc/*.cu)
-PORT_KERNELS = ("vfl_matmul_kernel", "flash_attention",
+PORT_KERNELS = ("vfl_matmul_", "flash_attention",
                 "decode_partial_kernel", "decode_combine_kernel",
-                "moe_router_kernel", "rwkv6_", "mamba_scan_kernel")
+                "moe_router_kernel", "rwkv6_", "mamba_scan_")
+
+
+# device time by kind of kernel, from its name: the port's kernels, the
+# GEMMs (cuBLAS), PyTorch's elementwise kernels (the discretisation's exp
+# and products among them), reductions, copies
+KERNEL_KINDS = (("port", tuple("(anonymous namespace)::" + stem
+                               for stem in PORT_KERNELS)),
+                ("gemm", ("nvjet", "gemm", "gemv", "sm90_xmma", "cutlass")),
+                ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce_kernel",)),
+                ("copy", ("copy", "CatArray")))
 
 
 def _profile_rows(prof, wall_ms, steps) -> dict:
@@ -1444,10 +1716,23 @@ def _profile_rows(prof, wall_ms, steps) -> dict:
     def listed(picked):
         return [{"kernel": k[:80], "ms_per_step": us / 1e3 / steps,
                  "calls_per_step": n / steps} for us, k, n in picked]
+
+    def kind(name):
+        for k, stems in KERNEL_KINDS:
+            if any(stem in name for stem in stems):
+                return k
+        return "other"
+    by_kind = {}
+    for us, k, n in rows:
+        acc = by_kind.setdefault(kind(k), [0.0, 0])
+        acc[0] += us / 1e3 / steps
+        acc[1] += n / steps
     return {"wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps if rows else None,
             "device_busy_share": device_ms / wall_ms if rows else None,
             "kernels_per_step": sum(r[2] for r in rows) / steps,
+            "by_kind": {k: {"ms_per_step": v[0], "calls_per_step": v[1]}
+                        for k, v in by_kind.items()},
             "top_device_kernels": listed(rows[:10]),
             "port_kernels": listed(r for r in rows if r[1].startswith(
                 tuple("void (anonymous namespace)::" + stem
@@ -1594,11 +1879,12 @@ def _counted_serve(cfg, model, params, prompts, per_layer):
     kernel launched.  Then a rerun, whose tokens must be bitwise equal.
     Returns (launches, engine counts, tokens, timings, peak bytes)."""
     from repro_torch.kernels import (
-        flash_attention, mamba_scan, moe_router, rwkv6_scan,
-        vfl_matmul_clients)
+        flash_attention, mamba_scan, mamba_scan_fused, moe_router,
+        rwkv6_scan, vfl_matmul_clients)
     wrappers = {"vfl_matmul": vfl_matmul_clients,
                 "flash_attention": flash_attention, "moe_router": moe_router,
-                "rwkv6_scan": rwkv6_scan, "mamba_scan": mamba_scan}
+                "rwkv6_scan": rwkv6_scan, "mamba_scan": mamba_scan,
+                "mamba_scan_fused": mamba_scan_fused}
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
@@ -1945,7 +2231,8 @@ JAMBA_LAYERS = 16
 
 
 def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
-    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    from repro_torch.kernels.mamba_scan import (
+        mamba_scan_fused, mamba_scan_fused_ref)
     held = _release()
     cfg, model, params, info = _init_model("jamba-v0.1-52b", JAMBA_LAYERS)
     kinds = model.kinds
@@ -1956,17 +2243,17 @@ def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
           f"jamba at {JAMBA_LAYERS} layers: {n_mamba} Mamba, {n_attn} "
           f"attention, {n_moe} MoE layers")
     prompts = _prompts(cfg)
+    # the fused scan at every Mamba layer; the unfused kernel not at all
     launches, counts, _, t, peak = _counted_serve(
         cfg, model, params, prompts,
-        {"mamba_scan": n_mamba, "flash_attention": n_attn,
+        {"mamba_scan_fused": n_mamba, "flash_attention": n_attn,
          "moe_router": n_moe})
 
-    def short(a, bx, c, h0=None, *, h_out=None):
-        return _last_channel_short(mamba_scan(a, bx, c, h0, h_out=h_out))
-    faults = {"y read from h_{t-1}": _mamba_y_from_previous,
-              "last channel tile short one channel": short}
-    scans = _scan_checks(cfg, params, prompts[0], "sscan", mamba_scan,
-                         mamba_scan_ref, faults, "y read from h_{t-1}")
+    faults = {"y read from h_{t-1}": _fused_y_from_previous,
+              "dt one step late": _fused_dt_late,
+              "last channel tile short one channel": _fused_short}
+    scans = _scan_checks(cfg, params, prompts[0], "sscan", mamba_scan_fused,
+                         mamba_scan_fused_ref, faults, "y read from h_{t-1}")
     carry = _carry_readings(model, params, prompts[0], "mamba", "h")
     emit({"phase": "serve_hybrid_checks", "logits_rtol": SSM_LOGIT_RTOL,
           "carry_rtol": {"logits": CARRY_LOGIT_RTOL,
@@ -1974,7 +2261,9 @@ def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
           "scans": scans, "carry": carry})
     _ssm_checks("jamba-v0.1-52b", scans, carry, faults)
 
-    mamba_row["launches"] = launches["mamba_scan"]
+    mamba_row["launches"] = launches["mamba_scan_fused"]
+    mamba_row["routes"]["fused"]["launches"] = launches["mamba_scan_fused"]
+    mamba_row["routes"]["unfused"]["launches"] = launches["mamba_scan"]
     attn_row["launches_serve_hybrid"] = launches["flash_attention"]
     router_row["launches_serve_hybrid"] = launches["moe_router"]
     emit({"phase": "serve_hybrid", **info,
@@ -1983,7 +2272,9 @@ def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
           "layers_by_kind": {"mamba": n_mamba, "attention": n_attn,
                              "moe": n_moe},
           "allocated_before_gb": held / 1e9, "serve_peak_gb": peak / 1e9,
-          **counts, "mamba_scan_launches": launches["mamba_scan"],
+          **counts,
+          "mamba_scan_fused_launches": launches["mamba_scan_fused"],
+          "mamba_scan_launches": launches["mamba_scan"],
           "flash_attention_launches": launches["flash_attention"],
           "moe_router_launches": launches["moe_router"],
           **_serve_metrics(prompts, t),

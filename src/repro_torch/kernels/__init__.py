@@ -7,7 +7,8 @@
 #                       (CUDA C++, sm_90a)
 #   rwkv6_scan       -- the RWKV6 time mix's WKV recurrence, state in and
 #                       out (CUDA C++, sm_90a)
-#   mamba_scan       -- the Mamba mixer's selective scan, state in and out
+#   mamba_scan       -- the Mamba mixer's selective scan, state in and out,
+#                       and its fused form that discretises in registers
 #                       (CUDA C++, sm_90a)
 # Each package: csrc/ (the CUDA source), ops.py (wrapper, launch count,
 # and vfl_matmul's autograd.Function), ref.py (the plain PyTorch
@@ -18,8 +19,12 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     flash_attention_ref,
 )
-from repro_torch.kernels.mamba_scan.ops import mamba_scan  # noqa: F401
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: F401
+from repro_torch.kernels.mamba_scan.ops import (  # noqa: F401
+    mamba_scan, mamba_scan_fused,
+)
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: F401
+    mamba_scan_fused_ref, mamba_scan_ref,
+)
 from repro_torch.kernels.moe_router.ops import moe_router  # noqa: F401
 from repro_torch.kernels.moe_router.ref import moe_router_ref  # noqa: F401
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: F401

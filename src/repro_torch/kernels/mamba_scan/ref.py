@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the Mamba selective scan: what the CUDA
-kernel computes, written with ordinary tensor ops.  The CPU path of the
+"""Plain PyTorch versions of the Mamba selective scan: what the CUDA
+kernels compute, written with ordinary tensor ops.  The CPU path of the
 wrapper runs it, and ``chip_smoke.py`` holds the kernel against it on
 the card.
 
@@ -11,6 +11,10 @@ The port of ``repro.kernels.mamba_scan.ref.mamba_scan_ref`` (a
 
 h [B, D, N] in float32 starting from ``h0`` (zeros when None).  A
 Python loop over T, one step at a time, as the reference's scan body.
+
+``mamba_scan_fused_ref`` is the fused kernel's function: the Mamba
+mixer's discretisation (``repro.models.ssm.mamba_apply``, the lines
+that form ``a`` and ``bx``), then ``mamba_scan_ref``.
 """
 from __future__ import annotations
 
@@ -35,3 +39,19 @@ def mamba_scan_ref(a, bx, c, h0=None, *, h_out=None):
         h_out.copy_(h)
         h = h_out
     return y, h
+
+
+def mamba_scan_fused_ref(dt, x, Bm, Cm, A, h0=None, *, h_out=None):
+    """dt [B, T, D] float32, x [B, T, D] and Bm, Cm [B, T, N] in the
+    model's dtype, A [D, N] float32, h0 [B, D, N] float32 or None ->
+    (y [B, T, D] float32, final h [B, D, N] float32): the reference's
+
+      a  = exp(dt A)        (dt A rounded to float32 first)
+      bx = (dt x) B         (x and B promoted to dt's float32)
+
+    over [B, T, D, N], then the scan of a, bx and C.  With ``h_out`` the
+    final h is written there (it may be ``h0``)."""
+    a = torch.exp(dt[..., None] * A)
+    bx = (dt * x)[..., None] * Bm[..., None, :].to(dt.dtype)
+    return mamba_scan_ref(a.float(), bx.float(), Cm.float(), h0,
+                          h_out=h_out)

@@ -7,9 +7,19 @@ layer of every client:
 
 with x [M, Kx], w [n, Kw, N] and y [n, M, N] in float32, and the
 offsets and sizes int32 [n] tensors on x's device.  On a CUDA tensor it
-launches the hand-written Hopper kernel (``csrc/vfl_matmul.cu``, built
-at first use) or raises; on a CPU tensor it runs the plain version in
-``ref.py``.  There is no other path.
+launches one of the hand-written Hopper kernels in ``csrc/vfl_matmul.cu``
+(built at first use) or raises; on a CPU tensor it runs the plain
+version in ``ref.py``.  There is no other path.  ``plan(M, Kx, Kw, N,
+n)``, a function of the shapes alone, picks the kernel and its launch:
+
+- ``wave``: at most ``WAVE_MAX_M`` rows and the widest slice fits in a
+  block's shared memory: a block of ``WAVE_BM`` rows loads all of its
+  client's slice at once, then multiplies (a training step's batch).
+- ``ring``: otherwise: a block of ``RING_BM`` rows walks K through a
+  ring of ``cp.async`` stages (the evaluation's test set, and any slice
+  too wide for shared memory).
+
+Both sum every output in the same order, so they give the same bits.
 
 ``vfl_matmul(x_local, w_full, offset, gate=None)`` keeps the JAX
 package's signature (``repro.kernels.vfl_matmul.vfl_matmul``): one
@@ -31,10 +41,63 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.vfl_matmul.ref import vfl_matmul_clients_ref
+
+# the kernels' tiles (csrc/vfl_matmul.cu's constants; its launcher
+# refuses a plan that disagrees)
+WAVE_BM = 16            # rows a wave block, one a thread
+RING_BM, RING_TM = 64, 4  # rows a ring block, rows a ring thread
+RING_BK, RING_STAGES = 32, 4
+BN_MAX = 16             # columns of an N-tile
+SMEM_MAX = 232448       # a block's shared memory on sm_90 (227 KB)
+# the most rows the wave kernel takes: it led the ring up to 1,024 rows
+# and trailed it at 4,096 (chip_smoke.py's ``crossover`` times both at
+# mnist's layout)
+WAVE_MAX_M = 1024
+
+
+class Plan(NamedTuple):
+    """How one call launches: the kernel (``wave`` or ``ring``), rows and
+    columns a block (``bm``, ``bn``), threads a block, the wave kernel's
+    shared-memory row stride of x (``ldx``, 0 for the ring), dynamic
+    shared-memory bytes a block, and the grid (N-tiles, M-tiles,
+    clients)."""
+    kernel: str
+    bm: int
+    bn: int
+    threads: int
+    ldx: int
+    smem: int
+    grid: tuple
+
+
+def _wave_ldx(kmax):
+    """x's row stride in the wave kernel's shared memory: at least kmax,
+    a multiple of 4 (16-byte copies) and 8 words past a multiple of 32,
+    so the rows of a warp's threads fall in different banks."""
+    return kmax + (8 - kmax) % 32
+
+
+def plan(M, Kx, Kw, N, n) -> Plan:
+    """The launch of x [M, Kx] against w [n, Kw, N] (module doc).  A
+    slice is at most min(Kx, Kw) wide whatever the sizes, which lie on
+    the device; the wave kernel's shared memory holds that much."""
+    bn = max(1, min(N, BN_MAX))
+    kmax = max(0, min(Kx, Kw))
+    ldx = _wave_ldx(kmax)
+    wave_smem = 4 * (WAVE_BM * ldx + kmax * N + 3)
+    if M <= WAVE_MAX_M and wave_smem <= SMEM_MAX:
+        kernel, bm, threads, smem = "wave", WAVE_BM, WAVE_BM * bn, wave_smem
+    else:
+        kernel, bm, ldx = "ring", RING_BM, 0
+        threads = RING_BM // RING_TM * bn
+        smem = 4 * RING_STAGES * (RING_BM * (RING_BK + 4) + RING_BK * BN_MAX)
+    return Plan(kernel, bm, bn, threads, ldx, smem,
+                (-(-N // bn), -(-M // bm), n))
 
 
 def _check(x, w, x_off, w_off, sizes):
@@ -55,36 +118,56 @@ def _check(x, w, x_off, w_off, sizes):
                              f"{t.device}")
 
 
+# the C launchers' arguments (csrc/vfl_matmul.cu)
+_ARGTYPES = {"vfl_matmul_launch": [ctypes.c_void_p] * 6 +
+             [ctypes.c_int] * 11 + [ctypes.c_void_p],
+             "vfl_matmul_empty_launch": [ctypes.c_void_p]}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel(name):
     from repro_torch.kernels import build
-    fn = build.load("vfl_matmul").vfl_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+    fn = getattr(build.load("vfl_matmul"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, w, x_off, w_off, sizes):
-    """Run the CUDA kernel on PyTorch's current stream."""
+def _launch(x, w, x_off, w_off, sizes, launch=None):
+    """Run the CUDA kernel on PyTorch's current stream, as ``launch``
+    (default ``plan(...)`` of the shapes) says."""
     tensors = (x, w, x_off, w_off, sizes)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("vfl_matmul's kernel takes contiguous tensors")
     n, kw, big_n = w.shape
     m, kx = x.shape
-    if -(-m // 64) > 65535:
-        raise ValueError(f"M={m} rows exceed the kernel's grid")
-    fn = _kernel()
+    p = launch or plan(m, kx, kw, big_n, n)
+    if -(-m // p.bm) > 65535 or n > 65535:
+        raise ValueError(f"M={m} rows or {n} clients exceed the kernel's "
+                         f"grid")
+    fn = _kernel("vfl_matmul_launch")
     y = torch.empty((n, m, big_n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), y.data_ptr(),
-                 n, m, kx, kw, big_n, stream)
+                 n, m, kx, kw, big_n, int(p.kernel == "ring"), p.bm, p.bn,
+                 p.threads, p.ldx, p.smem, stream)
     if err != 0:
         raise RuntimeError(f"vfl_matmul kernel launch failed: CUDA error "
                            f"{err}")
     vfl_matmul_clients.launches += 1
     return y
+
+
+def empty_launch(device=None):
+    """Launch an empty kernel (one block of 32 threads) on the current
+    stream: the launch floor chip_smoke.py times beside the kernels.  It
+    computes nothing and is not counted."""
+    with torch.cuda.device(device):
+        err = _kernel("vfl_matmul_empty_launch")(
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def _forward(x, w, x_off, w_off, sizes):

@@ -16,7 +16,8 @@ The kernel hooks, keyword arguments of ``Model`` and ``build_model``:
 on CUDA tensors); ``route`` the router every MoE layer calls
 (None: ``moe_router``); ``wkv`` the WKV scan every RWKV6 time mix calls
 (None: ``rwkv6_scan``); ``sscan`` the selective scan every Mamba mixer
-calls (None: ``mamba_scan``).  ``chip_smoke.py`` passes the plain
+calls, with ``mamba_scan_fused``'s signature ``(dt, x, B, C, A, h0, *,
+h_out)`` (None: ``mamba_scan_fused``).  ``chip_smoke.py`` passes the plain
 versions, and planted faults, to read the kernels' effect on the logits
 and the routes.
 """

@@ -10,7 +10,11 @@ into its plain version on the CPU (``repro_torch.kernels.rwkv6_scan``,
 the state itself, so the chunking is not ported.  ``wkv`` and ``sscan``
 are those functions, with the kernels' signatures and the kernels by
 default; the plain versions, or planted faults, may stand in for them
-(``Model``'s ``wkv`` and ``sscan``).
+(``Model``'s ``wkv`` and ``sscan``).  The Mamba mixer calls the fused
+scan, ``mamba_scan_fused(dt, x, B, C, A, h0)``, which forms the
+discretised a = exp(dt A) and bx = (dt x) B itself: the [B, T, d_in, N]
+float32 tensors ``_discretise`` describes are not materialised on this
+path.
 
 Decode carries explicit recurrent state (the SSM analogue of a KV
 cache) and writes it in place: the scans write their new state over the
@@ -22,14 +26,14 @@ reference's ``mamba_decode`` steps inline; the two compute the same.
 Dtypes follow the reference's promotion: in a bfloat16 model the
 projections stay bfloat16, while ``dt`` (a bf16 product plus the
 float32 ``dt_bias``), the decays and ``bx`` are float32, as JAX
-promotes them.
+promotes them (the fused scan forms them in float32).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan_fused
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.models import layers as L
 
@@ -59,13 +63,23 @@ def mamba_init(generator, cfg, dtype):
     }}
 
 
-def _discretise(m, x_conv, dt_rank, N):
-    """(dt-scaled decay a, input bx, C) of the scan from the conv output:
-    a = exp(dt A) and bx = dt x B over [..., d_in, N] in float32."""
+def _scan_inputs(m, x_conv, dt_rank, N):
+    """(dt, B, C, A) of the scan from the conv output: dt [..., d_in]
+    (float32 in a bf16 model), B and C [..., N] (views of the x
+    projection, in the model's dtype) and A = -exp(A_log) [d_in, N]."""
     proj = x_conv @ m["x_proj"]
     dt_raw, Bmat, Cmat = proj.split([dt_rank, N, N], dim=-1)
     dt = F.softplus(dt_raw @ m["dt_proj"] + m["dt_bias"])
     A = -torch.exp(m["A_log"])                        # [d_in, N]
+    return dt, Bmat, Cmat, A
+
+
+def _discretise(m, x_conv, dt_rank, N):
+    """(dt-scaled decay a, input bx, C) of the scan from the conv output:
+    a = exp(dt A) and bx = dt x B over [..., d_in, N] in float32, the
+    unfused scan's inputs.  The fused scan forms the same a and bx
+    itself (``mamba_scan_fused_ref`` states these expressions)."""
+    dt, Bmat, Cmat, A = _scan_inputs(m, x_conv, dt_rank, N)
     a = torch.exp(dt[..., None] * A)
     bx = (dt * x_conv)[..., None] * Bmat[..., None, :].to(dt.dtype)
     return a.float(), bx.float(), Cmat.float()
@@ -89,8 +103,9 @@ def mamba_apply(params, x, cfg, *, return_state=False, init_state=None,
     x_conv = sum(xp[:, i:i + S, :] * w[i] for i in range(K))
     x_conv = F.silu(x_conv)
 
-    a, bx, c = _discretise(m, x_conv, dt_rank, N)     # [B,S,d_in,N] f32
-    y, h_final = (sscan or mamba_scan)(a, bx, c, init_state)
+    dt, Bmat, Cmat, A = _scan_inputs(m, x_conv, dt_rank, N)
+    y, h_final = (sscan or mamba_scan_fused)(dt, x_conv, Bmat, Cmat, A,
+                                             init_state)
     y = y.to(x.dtype)
     y = y + m["D"].to(x.dtype) * x_conv
     out = (y * F.silu(z)) @ m["out_proj"]
@@ -120,9 +135,10 @@ def mamba_decode(params, x, state, cfg, sscan=None):
     x_in, z = xz.chunk(2, dim=-1)
     hist = torch.cat([state["conv"], x_in[:, None, :]], dim=1)  # [B,K,d]
     x_conv = F.silu(torch.einsum("bkd,kd->bd", hist, m["conv"]))
-    a, bx, c = _discretise(m, x_conv, dt_rank, N)     # [B,d_in,N] f32
-    y, _ = (sscan or mamba_scan)(a[:, None], bx[:, None], c[:, None],
-                                 state["h"], h_out=state["h"])
+    dt, Bmat, Cmat, A = _scan_inputs(m, x_conv, dt_rank, N)
+    y, _ = (sscan or mamba_scan_fused)(
+        dt[:, None], x_conv[:, None], Bmat[:, None], Cmat[:, None], A,
+        state["h"], h_out=state["h"])
     y = y[:, 0].to(x.dtype)
     y = y + m["D"].to(x.dtype) * x_conv
     out = ((y * F.silu(z)) @ m["out_proj"])[:, None, :]

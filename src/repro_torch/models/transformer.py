@@ -20,7 +20,7 @@ embedding's client-sharded d_model) is not ported yet.
 in for the kernels, each under its keyword and None for the kernel:
 ``attend`` (``models.attention``; ``flash_attention``), ``route``
 (``models.moe``; ``moe_router``), ``wkv`` and ``sscan``
-(``models.ssm``; ``rwkv6_scan`` and ``mamba_scan``).  The MoE
+(``models.ssm``; ``rwkv6_scan`` and ``mamba_scan_fused``).  The MoE
 load-balance loss is summed over the stack by ``stack_apply``, as in
 the reference; prefill and decode drop it.
 

@@ -28,7 +28,8 @@ from repro_torch.configs.reduced import reduced_config
 from repro_torch.interop import (
     params_from_numpy, params_to_numpy, state_to_numpy)
 from repro_torch.kernels import (
-    mamba_scan, mamba_scan_ref, rwkv6_scan, rwkv6_scan_ref)
+    mamba_scan, mamba_scan_fused, mamba_scan_fused_ref, rwkv6_scan,
+    rwkv6_scan_ref)
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
@@ -419,7 +420,7 @@ def test_hooks_reach_every_layer(pair, arch):
     runs anyway."""
     _, _, model, params = pair(arch)
     key, plain = ("wkv", rwkv6_scan_ref) if arch == "rwkv6-1.6b" else \
-        ("sscan", mamba_scan_ref)
+        ("sscan", mamba_scan_fused_ref)
     mixer = "rwkv" if arch == "rwkv6-1.6b" else "mamba"
     n = sum(kd["mixer"] == mixer for kd in model.kinds)
     assert n == 2
@@ -554,11 +555,14 @@ def test_serve_cli_runs_on_the_cpu(capsys, arch):
 
 
 def test_cpu_path_launches_no_scan_kernel(pair):
-    before = (rwkv6_scan.launches, mamba_scan.launches)
+    def counts():
+        return (rwkv6_scan.launches, mamba_scan.launches,
+                mamba_scan_fused.launches)
+    before = counts()
     for arch in ARCHS:
         _, _, model, params = pair(arch)
         model.prefill(params, {"tokens": torch.tensor([[1, 2, 3]])})
-    assert (rwkv6_scan.launches, mamba_scan.launches) == before
+    assert counts() == before
 
 
 @pytest.mark.parametrize("kind", [

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.vfl_matmul import (
-    vfl_matmul, vfl_matmul_clients, vfl_matmul_clients_ref, vfl_matmul_ref)
+    ops, vfl_matmul, vfl_matmul_clients, vfl_matmul_clients_ref,
+    vfl_matmul_ref)
 from test_torch_support import reference
 
 
@@ -194,3 +195,111 @@ def test_kernel_matches_plain_version_on_the_card():
         torch.cuda.synchronize()
         assert vfl_matmul_clients.launches == before + 1
         allclose(y.cpu(), vfl_matmul_clients_ref(x, w, *ints).cpu())
+
+
+# ---------------------------------------------------------------------------
+# the launch plan (a function of the shapes, run on the host)
+# ---------------------------------------------------------------------------
+MNIST_K, MNIST_N = 784, 10
+PLAN_SHAPES = [(M, MNIST_K, MNIST_K, MNIST_N, n)
+               for n in range(1, 11) for M in (64, 14000)] + [
+    (1001, 56, 56, 33, 3), (178, 9, 9, 10, 3), (5, 7, 20, 33, 1),
+    (96, 9, 9, 10, 3), (1, 1, 1, 1, 1), (300, 4000, 4000, 10, 2)]
+
+
+def _coverage(p, M, N):
+    """How many threads write each (client, row, column) under plan
+    ``p``: a wave thread writes one row of the column ``thread % bn`` of
+    its block's N-tile, a ring thread RING_TM neighbouring rows of it."""
+    rows_a_thread = 1 if p.kernel == "wave" else ops.RING_TM
+    count = np.zeros((p.grid[2], M, N), np.int64)
+    for t in range(p.threads):
+        r0 = t // p.bn * rows_a_thread
+        rows, cols = range(r0, r0 + rows_a_thread), [t % p.bn]
+        for by in range(p.grid[1]):
+            for bx in range(p.grid[0]):
+                for r in rows:
+                    m = by * p.bm + r
+                    for col in cols:
+                        if m < M and bx * p.bn + col < N:
+                            count[:, m, bx * p.bn + col] += 1
+    return count
+
+
+@pytest.mark.parametrize("M,Kx,Kw,N,n", PLAN_SHAPES)
+def test_plan_covers_every_output_once(M, Kx, Kw, N, n):
+    p = ops.plan(M, Kx, Kw, N, n)
+    assert (_coverage(p, M, N) == 1).all()
+    assert p.threads <= ops.BN_MAX * ops.WAVE_BM
+    assert 1 <= p.bn <= min(N, ops.BN_MAX)
+
+
+@pytest.mark.parametrize("M,Kx,Kw,N,n", PLAN_SHAPES)
+def test_plan_shared_memory_fits_a_block(M, Kx, Kw, N, n):
+    """Under 227 KB at 1 to 10 mnist clients, at the M and N tails case
+    and at a slice too wide for the wave kernel; the wave kernel's x rows
+    stay 16-byte aligned and start 8 banks apart."""
+    p = ops.plan(M, Kx, Kw, N, n)
+    assert 0 < p.smem <= ops.SMEM_MAX == 227 * 1024
+    if p.kernel == "wave":
+        assert p.ldx >= min(Kx, Kw) and p.ldx % 32 == 8
+        assert p.smem >= 4 * (ops.WAVE_BM * p.ldx + min(Kx, Kw) * N)
+
+
+def test_plan_picks_the_kernel_by_shape():
+    """A training step's batch loads its slice in one wave; the test set,
+    and any slice too wide for shared memory, take the ring."""
+    assert ops.plan(64, MNIST_K, MNIST_K, MNIST_N, 5).kernel == "wave"
+    assert ops.plan(64, MNIST_K, MNIST_K, MNIST_N, 5).grid == (1, 4, 5)
+    assert ops.plan(ops.WAVE_MAX_M, MNIST_K, MNIST_K, MNIST_N,
+                    5).kernel == "wave"
+    assert ops.plan(ops.WAVE_MAX_M + 1, MNIST_K, MNIST_K, MNIST_N,
+                    5).kernel == "ring"
+    assert ops.plan(14000, MNIST_K, MNIST_K, MNIST_N, 5).kernel == "ring"
+    wide = ops.plan(64, 4000, 4000, MNIST_N, 2)
+    assert wide.kernel == "ring" and wide.smem <= ops.SMEM_MAX
+
+
+@pytest.mark.parametrize("M,sizes,N,extra,shifted", CLIENT_CASES)
+def test_trailing_zero_columns_add_nothing(M, sizes, N, extra, shifted):
+    """The +-0.0 contract: a slice widened by columns of x that are zero
+    gives the same bits in the plain version, so a zero-padded slice (the
+    layout's padding, the ring's zero-filled last K-tile) changes no
+    sum."""
+    pad = 3
+    x, w, (xo, wo, sz) = _client_inputs(M, sizes, N, extra, shifted)
+    n = len(sizes)
+    # each slice followed by `pad` zero columns of x (and rows of W)
+    xw = torch.zeros(M, x.shape[1] + pad * n)
+    ww = torch.randn(n, w.shape[1] + pad * n, N,
+                     generator=torch.Generator().manual_seed(2))
+    xo2, wo2 = xo + pad * torch.arange(n, dtype=torch.int32), \
+        wo + pad * torch.arange(n, dtype=torch.int32)
+    for c in range(n):
+        s = int(sz[c])
+        xw[:, int(xo2[c]):int(xo2[c]) + s] = x[:, int(xo[c]):int(xo[c]) + s]
+        ww[c, int(wo2[c]):int(wo2[c]) + s] = w[c, int(wo[c]):int(wo[c]) + s]
+    y = vfl_matmul_clients_ref(xw, ww, xo2, wo2, sz)
+    y_pad = vfl_matmul_clients_ref(xw, ww, xo2, wo2, sz + pad)
+    assert torch.equal(y, y_pad)
+
+
+@pytest.mark.cuda
+def test_wave_and_ring_kernels_agree_bitwise_on_the_card():
+    """Both kernels sum every output in the same order: each case run
+    through each gives the same bits (chip_smoke.py does the same at the
+    training path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for M, sizes, N, extra, shifted in CLIENT_CASES:
+        x, w, ints = _client_inputs(M, sizes, N, extra, shifted)
+        x, w = x.cuda(), w.cuda()
+        ints = [v.cuda() for v in ints]
+        n, kw, _ = w.shape
+        wave = ops.plan(min(M, ops.WAVE_MAX_M), x.shape[1], kw, N, n)
+        ring = ops.plan(ops.WAVE_MAX_M + 1, x.shape[1], kw, N, n)
+        assert (wave.kernel, ring.kernel) == ("wave", "ring")
+        outs = [ops._launch(x, w, *ints, launch=p) for p in (wave, ring)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        allclose(outs[0].cpu(), vfl_matmul_clients_ref(x, w, *ints).cpu())
