@@ -32,14 +32,19 @@ Phases, each printing one JSON line:
               scaled_dot_product_attention
   5. moe_router
               holds moe_router against its plain version at the MoE
-              serving path's shapes (T = 8 a decode step, 1326 and 1536
-              prefills, E = 64, k = 6), at mixtral's E = 8, k = 2, at
-              the limits (E = 256, k = 8; k = E), at T = 1 and tails,
-              on exact ties and on rows that underflow; three planted
-              faults (first and k-th picks swapped, the Pallas kernel's
-              repeated index, the tail tile short a row) must fail that
-              check; and times kernel, plain version, bound and
-              softmax + topk
+              serving paths' shapes (T = 8 a decode step, 1326 and 1536
+              prefills, deepseek's E = 64, k = 6; jamba's E = 16, k = 2
+              at T = 8 and 1326), at mixtral's E = 8, k = 2, at the
+              limits (E = 256, k = 8; k = E), at T = 1 and tails, on
+              exact ties and on rows that underflow; four planted faults
+              (first and k-th picks swapped, the Pallas kernel's
+              repeated index, the tail tile short a row, one block's
+              partial stats dropped from a tile) must fail that check;
+              times kernel, plain version, bound, softmax + topk and an
+              empty kernel (the launch floor), with each timed case's
+              launch plan (ops.plan); and both plans, one block and a
+              cluster of 8, at T = 8 to 1536 and a jamba prefill (the
+              crossover)
   6. rwkv6_scan
               holds rwkv6_scan against its plain version at the ssm
               serving path's shapes (rwkv6-1.6b prefill B = 1, T = 1326
@@ -131,7 +136,9 @@ Phases, each printing one JSON line:
               80 GB; 14 Mamba, 2 attention, 8 MoE layers) the same way:
               mamba_scan_fused 14 (unfused mamba_scan 0),
               flash_attention 2 and moe_router 8 launches per prefill
-              and decode step; rerun bitwise; every Mamba layer's fused
+              and decode step; rerun bitwise; every MoE layer's routes
+              on the first prompt's prefill held to the plain router, as
+              in serve_moe; every Mamba layer's fused
               scan held against its plain version on the first prompt's
               prefill (planted faults: y read from h_{t-1}, dt one step
               late, the last channel tile short one channel); logits
@@ -876,6 +883,34 @@ def _kth_for_first(out):
     return w, idx, stats
 
 
+def _block_partial_dropped(out, logits, plan, block):
+    """A planted fault: one block's partial stats left out of its tile's
+    sum (the cluster's sum over its blocks short one rank)."""
+    from repro_torch.kernels.moe_router import ops
+    w, idx, stats = out
+    rows = ops.block_rows(plan, block)
+    rows = slice(rows.start, rows.stop)
+    p = torch.softmax(logits.float(), dim=-1)
+    stats = stats.clone()
+    stats[block // plan.cluster] -= _stats_of(idx[rows], p[rows],
+                                              rows.stop - rows.start)[0]
+    return w, idx, stats
+
+
+def _plan_row(plan) -> dict:
+    return {"lanes_per_row": plan.lanes, "values_per_lane": plan.per_lane,
+            "blocks_per_tile": plan.cluster,
+            "rows_per_block": plan.rows_per_block, "threads": plan.threads,
+            "blocks": plan.grid, "smem_bytes": plan.smem}
+
+
+# shapes at which the router's one-block and cluster plans are both
+# timed, to place ops.ONE_BLOCK_WORK: deepseek's E = 64, k = 6 at T = 8 to
+# 1536, and a jamba prefill (E = 16, k = 2)
+ROUTER_CROSSOVER = [(T, 64, 6) for T in (8, 32, 64, 256, 1024, 1536)] + [
+    (1326, 16, 2)]
+
+
 def _library_router(x, k):
     """The library yardstick: softmax, topk and a division, the stats
     by a scatter of the picks."""
@@ -888,7 +923,8 @@ def _library_router(x, k):
 def phase_moe_router() -> dict:
     """moe_router against its plain version; returns the kernel's
     record for the kernels line (all but ``launches``)."""
-    from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+    from repro_torch.kernels.moe_router import moe_router, moe_router_ref, ops
+    from repro_torch.kernels.vfl_matmul.ops import empty_launch
     gen = torch.Generator().manual_seed(2)
 
     def rand(T, E):
@@ -896,10 +932,13 @@ def phase_moe_router() -> dict:
     ties = torch.randint(0, 3, (256, 64), generator=gen).float().cuda()
     underflow = torch.zeros(16, 64)
     underflow[torch.arange(16), torch.arange(16) * 5 % 64] = 200.0
-    # name, logits, k, timed (a shape of the serving path)
+    # name, logits, k, timed (a shape of the serving path: deepseek's
+    # E = 64, k = 6 and jamba's E = 16, k = 2)
     cases = [("decode T=8", rand(8, 64), 6, True),
              ("prefill T=1326", rand(1326, 64), 6, True),
              ("prefill T=1536", rand(1536, 64), 6, True),
+             ("jamba decode T=8, E=16 k=2", rand(8, 16), 2, True),
+             ("jamba prefill T=1326, E=16 k=2", rand(1326, 16), 2, True),
              ("T=1", rand(1, 64), 6, False),
              ("T=200, a tail tile of 72 rows", rand(200, 64), 6, False),
              ("mixtral E=8 k=2, T=384", rand(384, 8), 2, False),
@@ -907,6 +946,8 @@ def phase_moe_router() -> dict:
              ("k = E = 5, T=77", rand(77, 5), 5, False),
              ("exact ties", ties, 6, False),
              ("rows that underflow", underflow.cuda(), 6, False)]
+    # the launch floor: an empty kernel in the same CUDA-graph harness
+    floor_ms = device_ms(lambda: empty_launch())
     rows, err_max, kept, timings = [], 0.0, {}, {}
     for name, x, k, timed in cases:
         out = moe_router(x, k)
@@ -940,12 +981,15 @@ def phase_moe_router() -> dict:
         nbytes = 4 * T * E + 8 * T * k + 4 * n_tiles * E
         # per logit: max, subtract, exp, sum, divide; k compares; the
         # stats' two adds
-        ops = T * E * (7 + k)
+        n_ops = T * E * (7 + k)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOP_PER_S * 1e3
-        timings[name] = {**times, "bound_ms": max(t_bytes, t_ops),
+        t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+        timings[name] = {"T": T, "E": E, "k": k, **times,
+                         "launch_floor_ms": floor_ms,
+                         "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations", "bytes": nbytes, "ops": ops}
+                         else "operations", "bytes": nbytes, "ops": n_ops,
+                         "plan": _plan_row(ops.plan(T, E, k))}
 
     x, k, out, plain = kept["decode T=8"]
     faults = {"first and k-th picks swapped":
@@ -959,6 +1003,9 @@ def phase_moe_router() -> dict:
     short[-1] -= _stats_of(out[1][-1:], p[-1:], 1)[0]
     faults["tail tile short its last row"] = route_reading(
         (out[0], out[1], short), plain, x)
+    # tile 3 without rank 5's 16 rows (a cluster of 8 at T=1326)
+    faults["one block's partial stats dropped from a tile"] = route_reading(
+        _block_partial_dropped(out, x, ops.plan(*x.shape, k), 29), plain, x)
     for fault, r in faults.items():
         check(not route_ok(r), f"planted fault '{fault}' passed the "
               f"moe_router check: {r}")
@@ -968,8 +1015,30 @@ def phase_moe_router() -> dict:
                      "stats": f"{ROUTER_STATS_ATOL} + {ROUTER_STATS_RTOL} "
                               "* |plain|"},
           "cases": rows, "planted_faults": faults})
+    # where ops.plan switches from one block to a cluster: both timed
+    crossover = {}
+    for T, E, k in ROUTER_CROSSOVER:
+        x, bt = rand(T, E), min(128, T)
+        plain = moe_router_ref(x, k)
+        at = f"T={T}, E={E}, k={k}"
+        crossover[at] = {"picked": "cluster" if ops.plan(T, E, k).cluster
+                         > 1 else "one block"}
+        outs = []
+        for name, c in (("one block", 1), ("cluster", ops.MAX_CLUSTER)):
+            p = ops.plan(T, E, k, cluster=c)
+            outs.append(ops._launch(x, k, bt, launch=p))
+            r = route_reading(outs[-1], plain, x)
+            check(route_ok(r), f"moe_router crossover {at} {name}: {r}")
+            crossover[at][name] = {
+                "ms": device_ms(lambda p=p: ops._launch(x, k, bt, launch=p)),
+                "blocks": p.grid, "threads": p.threads}
+        # a row's picks and weights do not depend on the plan
+        check(torch.equal(outs[0][0], outs[1][0]) and
+              torch.equal(outs[0][1], outs[1][1]),
+              f"moe_router crossover {at}: the plans' routes differ")
     emit({"phase": "moe_router_times", "kernel": "moe_router",
-          "timings": timings})
+          "timings": timings, "crossover": crossover,
+          "one_block_work": ops.ONE_BLOCK_WORK})
     main = timings["decode T=8"]
     return {"name": "moe_router", "route": "cuda",
             "source": "src/repro_torch/kernels/moe_router/csrc/"
@@ -979,6 +1048,7 @@ def phase_moe_router() -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "eager_ms": main["eager_ms"],
+            "launch_floor_ms": floor_ms, "plan": main["plan"],
             "at": {"shape": "deepseek-moe-16b decode step, T=8, E=64, k=6",
                    "ms": "device time per call, CUDA graph of 100 calls",
                    "library": "torch.softmax + torch.topk + division, "
@@ -2032,6 +2102,20 @@ def _route_readings(cfg, params, prompt) -> dict:
     return out
 
 
+def _route_checks(name, routes, n_moe) -> None:
+    """The prefill's routes: every MoE layer read, each held to the
+    plain router, the planted faults failing, the logits finite."""
+    check(routes["moe_layers"] == n_moe, f"{name}: routes read at "
+          f"{routes['moe_layers']} of {n_moe} MoE layers")
+    check(routes["kernel"]["ok"], f"{name} prefill routes, kernel vs plain "
+          f"router: {routes['kernel']}")
+    check(routes["finite"], f"{name} prefill logits not finite")
+    for fault in ("first and k-th picks swapped",
+                  "k-th pick in place of the first"):
+        check(not routes[fault]["ok"], f"planted fault '{fault}' passed "
+              f"the route check: {routes[fault]}")
+
+
 def phase_serve_moe(router_row, attn_row) -> None:
     import gc
     gc.collect()
@@ -2048,13 +2132,7 @@ def phase_serve_moe(router_row, attn_row) -> None:
     routes = _route_readings(cfg, params, prompts[0])
     emit({"phase": "serve_moe_routes", "route_margin": ROUTE_MARGIN,
           **routes})
-    check(routes["kernel"]["ok"], "prefill routes, kernel vs plain router: "
-          f"{routes['kernel']}")
-    check(routes["finite"], "deepseek-moe-16b prefill logits not finite")
-    for fault in ("first and k-th picks swapped",
-                  "k-th pick in place of the first"):
-        check(not routes[fault]["ok"], f"planted fault '{fault}' passed "
-              f"the route check: {routes[fault]}")
+    _route_checks("deepseek-moe-16b", routes, n_moe)
 
     router_row["launches"] = launches["moe_router"]
     attn_row["launches_serve_moe"] = launches["flash_attention"]
@@ -2249,6 +2327,11 @@ def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
         {"mamba_scan_fused": n_mamba, "flash_attention": n_attn,
          "moe_router": n_moe})
 
+    routes = _route_readings(cfg, params, prompts[0])
+    emit({"phase": "serve_hybrid_routes", "route_margin": ROUTE_MARGIN,
+          **routes})
+    _route_checks("jamba-v0.1-52b", routes, n_moe)
+
     faults = {"y read from h_{t-1}": _fused_y_from_previous,
               "dt one step late": _fused_dt_late,
               "last channel tile short one channel": _fused_short}
@@ -2278,6 +2361,7 @@ def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
           "flash_attention_launches": launches["flash_attention"],
           "moe_router_launches": launches["moe_router"],
           **_serve_metrics(prompts, t),
+          "routes_differ": routes["kernel"]["differ"],
           "logits_kernel_vs_plain_rel_l2": scans["logits_rel_l2"],
           "carry_logits_rel_l2": carry["carried"]["logits_rel_l2"]})
     emit({"phase": "serve_hybrid_profile", **_serve_profiles(model, params,

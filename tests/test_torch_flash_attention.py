@@ -8,8 +8,6 @@ reference model's ``_attend`` for the position tensors the decode path
 passes.  The kernel itself is held to the plain version on the card (the
 ``cuda`` test below, and chip_smoke.py).
 """
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,17 +16,7 @@ import torch
 from repro_torch.kernels.flash_attention import (
     combine_ref, decode_partials_ref, flash_attention, flash_attention_ref,
     ops, tensor_core_emulation)
-from test_torch_support import reference
-
-
-def _chip_smoke():
-    """chip_smoke.py as a module: its attention check (``attn_excess``)
-    is the kernels' contract on the card."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+from test_torch_support import chip_smoke, reference
 
 
 @pytest.fixture(scope="module")
@@ -237,7 +225,7 @@ def test_tensor_core_numerics_meet_the_chip_check(split_p, passes):
     plain = flash_attention_ref(q.float(), k.float(), v.float())
     out = tensor_core_emulation(q, k, v, split_p=split_p)
     assert out.dtype == torch.bfloat16
-    excess = _chip_smoke().attn_excess(out, plain)
+    excess = chip_smoke().attn_excess(out, plain)
     if passes:
         assert excess <= 1.0, excess
     else:
@@ -252,7 +240,7 @@ def test_tensor_core_emulation_masks_like_the_plain_version():
     for kw in ({"window": 30}, {"softcap": 30.0}, {"causal": False}):
         out = tensor_core_emulation(q, k, v, **kw)
         plain = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-        assert _chip_smoke().attn_excess(out, plain) <= 1.0, kw
+        assert chip_smoke().attn_excess(out, plain) <= 1.0, kw
     last = rng.integers(150, 400, 2)
     kpos = torch.tensor(_ring(2, 100, last, rng))
     qpos = torch.tensor(last[:, None].astype(np.int32))
@@ -260,7 +248,7 @@ def test_tensor_core_emulation_masks_like_the_plain_version():
     out = tensor_core_emulation(q1, k, v, q_pos=qpos, k_pos=kpos)
     plain = flash_attention_ref(q1.float(), k.float(), v.float(),
                                 q_pos=qpos, k_pos=kpos)
-    assert _chip_smoke().attn_excess(out, plain) <= 1.0
+    assert chip_smoke().attn_excess(out, plain) <= 1.0
 
 
 def _decode_inputs(seed, B, H, KV, size, hd, lo, hi):

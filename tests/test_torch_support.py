@@ -14,8 +14,10 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
 import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -77,6 +79,17 @@ def reference():
         finally:
             torch.set_num_threads(threads)
             _forget(before)
+
+
+def chip_smoke():
+    """chip_smoke.py as a module: its checks (``attn_excess``,
+    ``route_reading``, ``route_ok``) and limits are the kernels' contract
+    on the card."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def to_np(tree):
