@@ -88,8 +88,23 @@ Phases, each printing one JSON line:
               read just after; then reruns round 1 from the same
               weights and batches on the kernel lane (bitwise) and the
               slice lane (allclose)
-  9. profile  where a training step's time goes (torch.profiler)
- 10. serve    serves qwen2-7b at full width and depth (28 layers,
+  9. api      the front door, repro_torch.api, at the train phase's
+              config: build(ExperimentSpec(...)).run() records
+              first_layer "kernel", launches vfl_matmul once a step and
+              once an evaluation (the count set to 0 just before, read
+              just after), and is bitwise the train phase's
+              DeVertiFL.train(); its RunResult goes through json; then
+              the same spec with checkpoints every round: the run and a
+              resume() after the last round's file is deleted are
+              bitwise the uninterrupted run, a truncated newest file is
+              walked back past with a RuntimeWarning, a changed lr and a
+              checkpoint beyond the rounds are refused (ms per save);
+              and the Table II bank row (benchmarks/table2.py's
+              bank_vs_splitnn, 2 of its 20 rounds) in devertifl and
+              splitnn mode, each rerun bitwise, with steps/s and
+              spec_hash
+ 10. profile  where a training step's time goes (torch.profiler)
+ 11. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -99,7 +114,7 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
- 11. serve_moe
+ 12. serve_moe
               after qwen2-7b's memory is released, serves
               deepseek-moe-16b at full width and depth (28 layers, 64
               routed experts top-6 + 2 shared, random bf16 weights drawn
@@ -114,7 +129,7 @@ Phases, each printing one JSON line:
               that check; the logits against a prefill routed by the
               plain version; then one decode step and one prefill
               under torch.profiler
- 12. serve_rwkv
+ 13. serve_rwkv
               after deepseek-moe-16b's memory is released, serves
               rwkv6-1.6b at full width and depth (24 layers, random bf16
               weights drawn on the card) with the same 12 requests'
@@ -129,7 +144,7 @@ Phases, each printing one JSON line:
               prefill(prompt[:n + 1]), on the logits and every layer's
               state, which a decode from a zeroed state must fail; then
               one decode step and one prefill under torch.profiler
- 13. serve_hybrid
+ 14. serve_hybrid
               after rwkv6-1.6b's memory is released, serves
               jamba-v0.1-52b at full width and cut depth (16 of its 32
               layers: 103.15 GB of bf16 weights do not fit the card's
@@ -1663,12 +1678,14 @@ def phase_mamba_scan() -> dict:
 def _round_one(pcfg, lane):
     """Round 1 of ``pcfg``'s training on ``lane`` from the weights and
     batches ``DeVertiFL.train`` draws first."""
-    from repro_torch.core.protocol import DeVertiFL, train_generators
+    from repro_torch.core.protocol import (DeVertiFL, round_generator,
+                                           train_generators)
     fed = DeVertiFL(pcfg.replace(first_layer=lane), device="cuda")
-    init_gen, loop_gen = train_generators(pcfg.seed)
+    init_gen, _ = train_generators(pcfg.seed)
     params = fed.init_params(init_gen)
     _, _, _, losses = fed.run_round(params, fed.opt.init(params), 0,
-                                    fed.perms(loop_gen))
+                                    fed.perms(round_generator(pcfg.seed,
+                                                              0)))
     return losses.cpu()
 
 
@@ -1728,6 +1745,170 @@ def phase_train(kernel_row, pcfg) -> None:
           "vfl_matmul_launches": launches,
           "kernel_vs_slice_max_rel": rel, "lane_rtol": LANE_RTOL,
           "rerun_bitwise": True})
+    return out
+
+
+def _same_run(a, b) -> bool:
+    """Bitwise: the final metrics and params, and the losses of every
+    round ``a`` ran (a resumed run holds the last rounds of ``b``)."""
+    from repro_torch.tree import tree_leaves
+    tail = b.history[len(b.history) - len(a.history):]
+    return (len(a.history) == len(b.history) - (a.resumed_from or 0)
+            and all(x["round"] == y["round"] and torch.equal(
+                torch.as_tensor(x["round_losses"]),
+                torch.as_tensor(y["round_losses"]))
+                    for x, y in zip(a.history, tail))
+            and a.metrics == b.metrics
+            and all(torch.equal(x, y) for x, y in
+                    zip(tree_leaves(a.params), tree_leaves(b.params))))
+
+
+def _refusal(fn, fragment) -> str:
+    """Run ``fn``, which must raise ValueError naming ``fragment``."""
+    try:
+        fn()
+    except ValueError as e:
+        check(fragment in str(e), f"refused for another reason: {e}")
+        return str(e)[:120]
+    raise RuntimeError(f"chip_smoke check failed: no refusal ({fragment})")
+
+
+def _api_checkpoints(spec, uninterrupted) -> dict:
+    """Session checkpoints and resume() at the training phase's spec:
+    the checkpointed run and a resume after round 2's file is deleted
+    are bitwise the uninterrupted run; a truncated newest file is walked
+    back past with a RuntimeWarning; a changed lr and a checkpoint
+    beyond ``rounds`` are refused."""
+    import os
+    import tempfile
+    import warnings
+    import repro_torch.api.session as session
+    from repro_torch.api import build
+    save_ms = []
+    save = session.save_checkpoint
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    session.save_checkpoint = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = spec.replace(checkpoint_dir=tmp, checkpoint_every=1)
+            newest = os.path.join(tmp, f"session_{spec.rounds:08d}.npz")
+            sess = build(ck)        # one federation for its three runs
+            check(_same_run(sess.run(), uninterrupted),
+                  "the checkpointed run is not the uninterrupted run")
+            os.remove(newest)
+            res = sess.resume()
+            check(res.resumed_from == spec.rounds - 1,
+                  f"resumed from {res.resumed_from}")
+            check(_same_run(res, uninterrupted),
+                  "resume() is not the uninterrupted run")
+            with open(newest, "rb") as f:
+                blob = f.read()
+            with open(newest, "wb") as f:
+                f.write(blob[:len(blob) // 2])
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                walked = sess.resume()
+            check(any(issubclass(w.category, RuntimeWarning)
+                      and "corrupt" in str(w.message) for w in caught),
+                  "a truncated checkpoint was not reported")
+            check(walked.resumed_from == spec.rounds - 1
+                  and _same_run(walked, uninterrupted),
+                  "walking back past a truncated file changed the run")
+            lr = _refusal(lambda: build(ck.replace(lr=2 * spec.lr)).resume(),
+                          "resume_hash")
+            beyond = _refusal(
+                lambda: build(ck.replace(rounds=spec.rounds - 1)).resume(),
+                "beyond spec.rounds")
+    finally:
+        session.save_checkpoint = save
+    return {"saves": len(save_ms), "save_ms": save_ms,
+            "save_ms_mean": sum(save_ms) / len(save_ms),
+            "resumed_from": res.resumed_from, "resume_bitwise": True,
+            "truncated_newest": f"RuntimeWarning, resumed from "
+                                f"{walked.resumed_from}, bitwise",
+            "lr_changed": lr, "beyond_rounds": beyond}
+
+
+def _table2_row(spec) -> dict:
+    """One Table II row at ``spec``: finite F1 and accuracy in [0, 1],
+    and a rerun bitwise."""
+    from repro_torch.api import build
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    vfl_matmul_clients.launches = 0
+    rr = build(spec).run()
+    launches = vfl_matmul_clients.launches
+    m = rr.metrics
+    check(all(math.isfinite(m[k]) and 0.0 <= m[k] <= 1.0
+              for k in ("f1", "acc")), f"{spec.mode} metrics {m}")
+    again = build(spec).run()
+    check(_same_run(rr, again), f"{spec.mode}: the rerun is not bitwise")
+    tel = rr.telemetry
+    return {"mode": spec.mode, "spec_hash": rr.spec_hash,
+            "first_layer": spec.first_layer, "f1": m["f1"],
+            "acc": m["acc"], "steps": tel.steps, "wall_s": tel.wall_s,
+            "steps_per_s": tel.steps_per_sec,
+            "vfl_matmul_launches": launches, "rerun_bitwise": True}
+
+
+def phase_api(train_out, pcfg) -> None:
+    """The front door, ``repro_torch.api``, on the card: a Session at the
+    training phase's config runs through vfl_matmul (the count set to 0
+    just before, read just after) and is bitwise ``phase_train``'s
+    ``DeVertiFL.train()``; checkpoints and resume(); the Table II bank
+    row in devertifl and splitnn mode."""
+    from repro_torch.api import RESULT_SCHEMA_VERSION, ExperimentSpec, build
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    spec = ExperimentSpec(dataset=pcfg.dataset, n_clients=pcfg.n_clients,
+                          n_samples=pcfg.n_samples, rounds=pcfg.rounds,
+                          epochs=pcfg.epochs, batch_size=pcfg.batch_size)
+    check(spec.first_layer == "kernel",
+          f"first_layer='auto' canonicalized to {spec.first_layer!r}")
+    t_phase = t0 = time.perf_counter()
+    sess = build(spec)
+    fed = sess.federation
+    setup_s = time.perf_counter() - t0
+    vfl_matmul_clients.launches = 0
+    rr = sess.run()
+    launches = vfl_matmul_clients.launches
+    steps = pcfg.rounds * pcfg.epochs * fed.n_batches
+    expected = steps + pcfg.rounds + 1
+    check(launches == expected,
+          f"Session: vfl_matmul launched {launches} times, expected "
+          f"{expected}")
+    check(rr.telemetry.steps == steps, "Session telemetry steps")
+    check(all(torch.equal(torch.as_tensor(h["round_losses"]),
+                          torch.as_tensor(t["round_losses"]))
+              for h, t in zip(rr.history, train_out["history"], strict=True)),
+          "Session round losses are not DeVertiFL.train()'s, bitwise")
+    check(rr.metrics == train_out["final"],
+          f"Session metrics {rr.metrics} != train()'s {train_out['final']}")
+    record = json.loads(json.dumps(rr.to_dict()))
+    check(record["schema_version"] == RESULT_SCHEMA_VERSION == 5,
+          "RunResult schema")
+    ckpt = _api_checkpoints(spec, rr)
+    # benchmarks/table2.py's bank_vs_splitnn row, cut from 20 rounds to 2
+    bank = ExperimentSpec(dataset="bank", n_clients=2, rounds=2,
+                          epochs=10)
+    rows = [_table2_row(bank), _table2_row(bank.replace(mode="splitnn"))]
+    check(rows[0]["vfl_matmul_launches"] == rows[0]["steps"] + 3,
+          f"bank devertifl: {rows[0]['vfl_matmul_launches']} launches")
+    check(rows[1]["vfl_matmul_launches"] == 0, "splitnn ran vfl_matmul")
+    emit({"phase": "api", "spec_hash": rr.spec_hash,
+          "first_layer": spec.first_layer, "setup_s": setup_s,
+          "steps": steps, "wall_s": rr.telemetry.wall_s,
+          "steps_per_s": rr.telemetry.steps_per_sec,
+          "vfl_matmul_launches": launches,
+          "bitwise_vs_train": True, "final_f1": rr.metrics["f1"],
+          "schema_version": record["schema_version"],
+          "checkpoint": ckpt, "table2_bank": rows,
+          "reduced": "bank_vs_splitnn (benchmarks/table2.py): 2 of its "
+                     "20 rounds",
+          "phase_s": time.perf_counter() - t_phase})
 
 
 def phase_profile(pcfg) -> None:
@@ -1735,12 +1916,13 @@ def phase_profile(pcfg) -> None:
     federation at fewer samples under torch.profiler -- device time by
     kernel, and the device's busy share of the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.protocol import DeVertiFL, train_generators
+    from repro_torch.core.protocol import (DeVertiFL, round_generator,
+                                           train_generators)
     fed = DeVertiFL(pcfg, device="cuda")
-    init_gen, loop_gen = train_generators(pcfg.seed)
+    init_gen, _ = train_generators(pcfg.seed)
     params = fed.init_params(init_gen)
     opt_state = fed.opt.init(params)
-    idx = fed.perms(loop_gen)
+    idx = fed.perms(round_generator(pcfg.seed, 0))
     fed.run_round(params, opt_state, 0, idx)        # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2379,7 +2561,8 @@ def main() -> None:
     from repro_torch.core.protocol import ProtocolConfig
     pcfg = ProtocolConfig(dataset="mnist", n_clients=5, n_samples=70000,
                           rounds=2, epochs=1, batch_size=64)
-    phase_train(kernel_row, pcfg)
+    train_out = phase_train(kernel_row, pcfg)
+    phase_api(train_out, pcfg)
     phase_profile(pcfg.replace(n_samples=4000))
     phase_serve(attn_row)
     phase_serve_moe(router_row, attn_row)

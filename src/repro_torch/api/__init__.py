@@ -1,0 +1,39 @@
+"""repro_torch.api -- the one front door to De-VertiFL experiments on
+the GPU: the port of ``repro.api``.
+
+Declare WHAT to run as a frozen, hashable :class:`ExperimentSpec`
+(validated eagerly against the dataset / mode / first-layer
+registries; its ``spec_hash`` is the reference's), then :func:`build`
+it into a :class:`Session` and run::
+
+    from repro_torch.api import ExperimentSpec, build
+
+    spec = ExperimentSpec(dataset="mnist", mode="devertifl",
+                          n_clients=5, rounds=5)
+    result = build(spec).run()          # -> RunResult, on CUDA
+    print(result.metrics, result.spec_hash)
+
+``build(spec, device="cpu")`` runs on the CPU.  Extend an axis through
+the registries: :func:`register_dataset`, :func:`register_mode`,
+:func:`register_first_layer`.  Spec grids (``spec_grid``,
+``run_grid``) wait for the sweep engine (ROADMAP.md, Queue 1 item 2);
+the schedule and serving names for items 4 and 5.
+"""
+from repro_torch.api.spec import ExperimentSpec, HASH_EXCLUDE  # noqa: F401
+from repro_torch.api.modes import (  # noqa: F401
+    ModeEntry, get_mode, mode_names, register_mode,
+)
+from repro_torch.api.session import (  # noqa: F401
+    RESULT_SCHEMA_VERSION, RunResult, Session, build, git_sha, run_grid,
+    spec_grid, sweep_config_for_specs,
+)
+from repro_torch.core.protocol import register_first_layer  # noqa: F401
+from repro_torch.data.registry import (  # noqa: F401
+    DatasetEntry, dataset_names, get_dataset, register_dataset,
+)
+
+
+def first_layer_names() -> list:
+    """Registered first-layer lane names."""
+    from repro_torch.core.protocol import FIRST_LAYERS
+    return FIRST_LAYERS.names()

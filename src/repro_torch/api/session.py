@@ -1,0 +1,477 @@
+"""``build(spec) -> Session`` -- the runnable side of the front door:
+the port of ``repro.api.session``.
+
+A Session wraps one mode implementation (resolved from the mode
+registry) behind a uniform surface:
+
+  session.run()      train, return a versioned :class:`RunResult`
+  session.predict()  class predictions from the trained params
+  session.resume()   continue from the latest intact checkpoint in
+                     ``spec.checkpoint_dir``
+
+``device`` is an execution argument, not a spec field: None means
+CUDA (``resolve_device``), and nothing falls back to the CPU.
+
+Contract (tests/test_torch_api.py on the CPU, chip_smoke.py's ``api``
+phase on the card):
+
+  * a single-seed federated Session reproduces
+    ``DeVertiFL(ProtocolConfig(...)).train()`` bit for bit -- the same
+    init generator, round r's batches from ``round_generator(seed, r)``,
+    the same history entries -- in every mode, lane and padding;
+  * a ``resume()`` after a checkpoint is bit for bit the uninterrupted
+    run (round r consumes only the carried state and its own
+    generator), and its checkpoints carry the reference's keys and
+    stamps, so a checkpoint crosses between the packages;
+  * ``spec_hash`` is the reference's for equal fields.
+
+Still waiting: multi-seed federated sessions and spec grids
+(ROADMAP.md, Queue 1 item 2), ``server``/``serve`` (item 5), a
+``RetryPolicy`` (item 4).
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+import time
+import warnings
+from dataclasses import dataclass, field
+from functools import lru_cache
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.modes import get_mode
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.checkpoint import (CheckpointCorruptError,
+                                    checkpoint_steps, load_checkpoint,
+                                    load_entry, save_checkpoint)
+from repro_torch.core.baselines import SplitNN, SplitNNConfig
+from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
+                                       resolve_device, round_generator,
+                                       train_generators)
+from repro_torch.obs import NullTracer, Telemetry
+from repro_torch.tree import tree_map
+
+# the reference's schema: 5 adds the unified ``telemetry`` record, from
+# which the legacy ``timings`` dict is derived
+RESULT_SCHEMA_VERSION = 5
+_CKPT_NAME = "session"
+
+
+def _hash_array(hex_hash: str) -> np.ndarray:
+    """16-hex-char hash -> uint8[8], checkpointable alongside params."""
+    return np.frombuffer(bytes.fromhex(hex_hash), np.uint8)
+
+
+# the schedule(+fault)(+wire)(+obs) identity the reference stamps into
+# checkpoints and resume() verifies; the port runs only the defaults,
+# whose stamp is the hash of "schedule:sync"
+_STREAM_STAMP = hashlib.sha256(b"schedule:sync").hexdigest()[:16]
+
+
+def _deferred(what, item, name):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
+        f"Queue 1 item {item} ({name})")
+
+
+@lru_cache(maxsize=1)
+def git_sha() -> str:
+    """`git describe --always --dirty` of this checkout ("unknown"
+    outside a repo; cached -- constant per process)."""
+    try:
+        return subprocess.check_output(
+            ["git", "describe", "--always", "--dirty"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            text=True, stderr=subprocess.DEVNULL).strip()
+    except Exception:
+        return "unknown"
+
+
+def _clean(v):
+    """JSON-safe: arrays and tensors -> lists, numpy scalars -> python."""
+    if isinstance(v, dict):
+        return {k: _clean(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_clean(x) for x in v]
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy().tolist()
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (np.floating, np.integer)):
+        return v.item()
+    return v
+
+
+@dataclass
+class RunResult:
+    """Versioned result record.  ``params`` (the trained per-client
+    param stack, or the SplitNN param dict) is carried for programmatic
+    use but excluded from ``to_dict()`` so results serialize small."""
+    spec: ExperimentSpec
+    spec_hash: str
+    git_sha: str
+    metrics: dict                   # final metrics ("f1", "acc", ...)
+    history: List[dict] = field(default_factory=list)
+    # DEPRECATED alias derived from ``telemetry.to_timings()``
+    timings: dict = field(default_factory=dict)
+    params: Any = None
+    resumed_from: Optional[int] = None
+    telemetry: Optional[Telemetry] = None
+    schema_version: int = RESULT_SCHEMA_VERSION
+
+    def to_dict(self) -> dict:
+        """JSON-safe dict (the bench schema embeds this shape)."""
+        return {
+            "schema_version": self.schema_version,
+            "spec": self.spec.to_dict(),
+            "spec_hash": self.spec_hash,
+            "git_sha": self.git_sha,
+            "metrics": _clean(self.metrics),
+            "history": _clean(self.history),
+            "timings": _clean(self.timings),
+            "resumed_from": self.resumed_from,
+            "telemetry": (None if self.telemetry is None
+                          else self.telemetry.to_dict()),
+        }
+
+
+def _protocol_config(spec: ExperimentSpec, internal: str) -> ProtocolConfig:
+    """The thin internal config a spec lowers to (field for field; the
+    spec's extra knobs -- eval cadence, checkpointing, shard -- live at
+    the Session layer)."""
+    return ProtocolConfig(
+        dataset=spec.dataset, n_clients=spec.n_clients,
+        rounds=spec.rounds, epochs=spec.epochs,
+        batch_size=spec.batch_size, lr=spec.lr,
+        exchange_at=spec.exchange_at, mode=internal, fedavg=spec.fedavg,
+        seed=spec.seed, n_samples=spec.n_samples, engine=spec.engine,
+        first_layer=spec.first_layer, schedule=spec.schedule,
+        fault=spec.fault, transform=spec.transform, obs=spec.obs,
+        max_clients=spec.max_clients)
+
+
+def _check_retry(retry) -> None:
+    """"auto" resolves to no policy (``fault`` is "none"); None/False
+    disable it; a RetryPolicy waits for its module."""
+    if retry not in ("auto", None, False):
+        raise _deferred("retry= with a RetryPolicy", 4,
+                        "schedule/faults/wire/obs")
+
+
+class Session:
+    """One runnable experiment on ``device`` (CUDA unless the caller
+    names another).  Construct via :func:`build`."""
+
+    def __init__(self, spec: ExperimentSpec, device=None):
+        if not isinstance(spec, ExperimentSpec):
+            raise TypeError(f"build() takes an ExperimentSpec, got "
+                            f"{type(spec).__name__}")
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.mode = get_mode(spec.mode)
+        self._fed = None
+        self._runner = None
+        self._last_params = None
+        self.tracer = NullTracer()      # obs="none"
+
+    # ------------------------------------------------------------------
+    @property
+    def federation(self) -> DeVertiFL:
+        """The underlying DeVertiFL engine (federated modes only) --
+        built lazily, shared by run/resume/predict."""
+        if self.mode.kind != "federated":
+            raise ValueError(f"mode {self.spec.mode!r} has no DeVertiFL "
+                             "federation (it is not a federated mode)")
+        if self._fed is None:
+            self._fed = DeVertiFL(
+                _protocol_config(self.spec, self.mode.internal),
+                device=self.device)
+        return self._fed
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _result(self, metrics, history, params, telemetry,
+                resumed_from=None) -> RunResult:
+        """The one RunResult construction path; a custom runner's
+        legacy timings dict is lifted through
+        ``Telemetry.from_timings``."""
+        self._last_params = params
+        if not isinstance(telemetry, Telemetry):
+            telemetry = Telemetry.from_timings(telemetry)
+        return RunResult(spec=self.spec, spec_hash=self.spec.spec_hash,
+                         git_sha=git_sha(), metrics=metrics,
+                         history=history,
+                         timings=telemetry.to_timings(), params=params,
+                         resumed_from=resumed_from,
+                         telemetry=telemetry)
+
+    # ------------------------------------------------------------------
+    def run(self, key=None, retry="auto") -> RunResult:
+        """Train from scratch.  ``key`` is an int seed that overrides
+        the spec's (single-seed federated sessions only); it is refused
+        with checkpointing, since resume() would continue on the spec
+        seed's stream.  ``retry``: "auto" (no policy while ``fault`` is
+        "none"), None or False."""
+        spec = self.spec
+        _check_retry(retry)
+        if key is not None and (self.mode.kind != "federated"
+                                or len(spec.seeds) > 1):
+            raise ValueError(
+                "key= applies to single-seed federated sessions; other "
+                "modes and multi-seed cells derive keys from the spec "
+                "seeds")
+        if key is not None and spec.checkpoint_every:
+            raise ValueError(
+                "key= cannot be combined with checkpointing: the "
+                "custom key is not recorded, so resume() would "
+                "continue the run on the spec-seed key stream instead "
+                "-- a silent hybrid trajectory")
+        if self.mode.kind == "custom":
+            runner = self.mode.runner(spec)
+            self._runner = runner
+            return self._result(*runner.run())
+        if self.mode.kind == "splitnn":
+            return self._run_splitnn()
+        if len(spec.seeds) > 1:
+            raise _deferred("a multi-seed federated session", 2, "sweep")
+        return self._run_federated(key=key)
+
+    def resume(self, retry="auto") -> RunResult:
+        """Continue from the newest INTACT checkpoint in
+        ``spec.checkpoint_dir`` (a fresh ``run()`` if none exists).
+        Corrupt or truncated files are skipped with a RuntimeWarning.
+        Rounds after the checkpoint are bit for bit the uninterrupted
+        run's."""
+        spec = self.spec
+        _check_retry(retry)
+        if not spec.checkpoint_dir:
+            raise ValueError("resume() needs spec.checkpoint_dir")
+        if self.mode.kind != "federated" or len(spec.seeds) > 1:
+            raise ValueError("resume() supports single-seed federated "
+                             "sessions")
+        steps = checkpoint_steps(spec.checkpoint_dir, name=_CKPT_NAME)
+        if not steps:
+            return self.run()
+        fed = self.federation
+        want_sched = _hash_array(_STREAM_STAMP)
+        params_like = fed.model.params()
+        like_base = {"params": params_like,
+                     "opt_state": fed.opt.init(params_like),
+                     "step_idx": np.zeros((), np.int32),
+                     "sched": fed.init_sched_state(),
+                     "resume_hash": _hash_array(spec.resume_hash)}
+        state, step = None, None
+        for cand in reversed(steps):
+            try:
+                if cand > spec.rounds:
+                    raise ValueError(
+                        f"latest intact checkpoint in "
+                        f"{spec.checkpoint_dir!r} is at round {cand}, "
+                        f"beyond spec.rounds={spec.rounds}: resuming "
+                        "would return a longer run's params under "
+                        "this spec's hash; raise rounds or point at a "
+                        "different checkpoint_dir")
+                # the stream stamp first: a checkpoint written under
+                # another schedule / fault plan / transform / obs level
+                # carries other scan state
+                got_sched = load_entry(spec.checkpoint_dir, cand,
+                                       "schedule_hash", name=_CKPT_NAME)
+                if got_sched is not None and \
+                        not np.array_equal(got_sched, want_sched):
+                    raise ValueError(
+                        f"checkpoint in {spec.checkpoint_dir!r} was "
+                        "written under a different exchange schedule, "
+                        "fault plan or wire transform (or obs level) "
+                        f"than this spec's (schedule={spec.schedule!r}, "
+                        f"fault={spec.fault!r}, "
+                        f"transform={spec.transform!r}, "
+                        f"obs={spec.obs!r}): resuming would splice "
+                        "mismatched scan state into this run; rebuild "
+                        "the spec with the original "
+                        "schedule+fault+transform+obs or use a fresh "
+                        "checkpoint_dir")
+                like = dict(like_base)
+                if got_sched is not None:
+                    like["schedule_hash"] = want_sched
+                state = load_checkpoint(spec.checkpoint_dir, cand, like,
+                                        name=_CKPT_NAME)
+                step = cand
+                break
+            except CheckpointCorruptError as e:
+                warnings.warn(
+                    f"resume(): skipping corrupt checkpoint at round "
+                    f"{cand} ({e}); falling back to the next older "
+                    "step", RuntimeWarning, stacklevel=2)
+        if state is None:
+            warnings.warn(
+                f"resume(): every checkpoint in "
+                f"{spec.checkpoint_dir!r} is corrupt; training from "
+                "scratch", RuntimeWarning, stacklevel=2)
+            return self.run()
+        if not np.array_equal(state["resume_hash"],
+                              _hash_array(spec.resume_hash)):
+            raise ValueError(
+                f"checkpoint in {spec.checkpoint_dir!r} belongs to a "
+                "different experiment (resume_hash mismatch): resuming "
+                "it under this spec would splice another run's params "
+                "into this spec's RunResult")
+        return self._run_federated(
+            start_round=step,
+            state=(state["params"], state["opt_state"],
+                   int(state["step_idx"]), state["sched"]),
+            resumed_from=step)
+
+    def predict(self, x, params=None):
+        """Class predictions on raw (original-column-order) inputs.
+        Federated modes return the LIVE per-client [n_clients, B]
+        stack (a tensor on the device; dead padded slots trimmed);
+        splitnn returns numpy [B].  ``params`` defaults to the last
+        run's."""
+        params = params if params is not None else self._last_params
+        if params is None:
+            if len(self.spec.seeds) > 1:
+                raise ValueError(
+                    "multi-seed cells do not retain per-seed params; "
+                    "run a single-seed session (seeds=(s,)) for "
+                    "predict(), or pass params= explicitly")
+            raise ValueError("predict() before run()/resume(): pass "
+                             "params= or train first")
+        if self.mode.kind == "federated":
+            return self.federation.predict(params, x)[:self.spec.n_clients]
+        if self.mode.kind == "splitnn":
+            return self._splitnn().predict(params, x)
+        if self._runner is None:    # predict with explicit params=
+            self._runner = self.mode.runner(self.spec)
+        return self._runner.predict(params, x)
+
+    def server(self, params=None, **server_kw):
+        """Federated serving (the reference's ``FederatedServer``)."""
+        raise _deferred("Session.server()", 5, "serving/federated.py")
+
+    def serve(self, requests, params=None, **server_kw):
+        """Batch serving over :meth:`server`."""
+        raise _deferred("Session.serve()", 5, "serving/federated.py")
+
+    # ------------------------------------------------------------------
+    def _run_federated(self, key=None, start_round=0, state=None,
+                       resumed_from=None) -> RunResult:
+        spec = self.spec
+        fed = self.federation
+        seed = spec.seed if key is None else key
+        if state is None:
+            init_gen, _ = train_generators(seed)
+            params, opt_state = fed.start(fed.init_params(init_gen))
+            step_idx, sched_state = 0, fed.init_sched_state()
+        else:
+            params, opt_state, step_idx, sched_state = state
+            params, opt_state = fed.start(params, opt_state)
+        history = []
+        self._sync()
+        t0 = time.perf_counter()
+        for r in range(start_round, spec.rounds):
+            with self.tracer.span("round", cat="train", round=r):
+                params, opt_state, step_idx, losses = fed.run_round(
+                    params, opt_state, step_idx,
+                    fed.perms(round_generator(seed, r)))
+            if spec.eval_every and (r + 1) % spec.eval_every == 0:
+                ev = fed.evaluate(params)
+                ev["round"] = r
+                ev["round_losses"] = losses.cpu().numpy()
+                ev["loss"] = float(ev["round_losses"][-1])
+                history.append(ev)
+            if spec.checkpoint_every and \
+                    (r + 1) % spec.checkpoint_every == 0:
+                save_checkpoint(
+                    spec.checkpoint_dir, r + 1,
+                    {"params": params, "opt_state": opt_state,
+                     "step_idx": np.asarray(step_idx, np.int32),
+                     "sched": sched_state,
+                     "resume_hash": _hash_array(spec.resume_hash),
+                     "schedule_hash": _hash_array(_STREAM_STAMP)},
+                    name=_CKPT_NAME)
+        self._sync()
+        wall = time.perf_counter() - t0
+        final = fed.evaluate(params)
+        steps = (spec.rounds - start_round) * spec.epochs * fed.n_batches
+        telemetry = Telemetry(wall_s=wall, steps=steps,
+                              steps_per_sec=steps / max(wall, 1e-9))
+        # the sync path carries no fault, wire or obs state: these
+        # stay None, as the reference's do at the defaults
+        telemetry.fault = fed.fault_telemetry(sched_state)
+        telemetry.wire = fed.wire_telemetry(sched_state)
+        telemetry.series = fed.obs_series(sched_state)
+        return self._result(final, history,
+                            tree_map(lambda p: p.detach().clone(), params),
+                            telemetry, resumed_from=resumed_from)
+
+    def _splitnn_config(self, seed) -> SplitNNConfig:
+        spec = self.spec
+        return SplitNNConfig(
+            dataset=spec.dataset, n_clients=spec.n_clients,
+            rounds=spec.rounds, epochs=spec.epochs,
+            batch_size=spec.batch_size, lr=spec.lr, seed=seed,
+            n_samples=spec.n_samples)
+
+    def _splitnn(self) -> SplitNN:
+        if self._runner is None:
+            self._runner = SplitNN(self._splitnn_config(self.spec.seed),
+                                   device=self.device)
+        return self._runner
+
+    def _run_splitnn(self) -> RunResult:
+        spec = self.spec
+        self._sync()
+        t0 = time.perf_counter()
+        if len(spec.seeds) == 1:
+            sn = self._splitnn()
+            metrics, params = sn.train(return_state=True)
+            steps = spec.rounds * spec.epochs * sn.n_batches
+        else:
+            # params stay None: a multi-seed run keeps no single model
+            # for predict() to silently pick
+            params, f1s, accs, steps = None, [], [], 0
+            for s in spec.seeds:
+                sn = SplitNN(self._splitnn_config(s), device=self.device)
+                m = sn.train()
+                f1s.append(m["f1"]), accs.append(m["acc"])
+                steps += spec.rounds * spec.epochs * sn.n_batches
+            metrics = {"f1": float(np.mean(f1s)),
+                       "acc": float(np.mean(accs)),
+                       "f1_std": float(np.std(f1s)),
+                       "f1_per_seed": f1s, "acc_per_seed": accs,
+                       "seeds": list(spec.seeds)}
+        wall = time.perf_counter() - t0     # predict() ends on the host
+        return self._result(metrics, [], params,
+                            Telemetry(wall_s=wall, steps=steps,
+                                      steps_per_sec=steps / max(wall,
+                                                                1e-9)))
+
+
+def build(spec: ExperimentSpec, device=None) -> Session:
+    """The front door: one validated spec -> one runnable Session on
+    ``device`` (CUDA unless the caller names another)."""
+    return Session(spec, device=device)
+
+
+# ---------------------------------------------------------------------------
+# spec grids: they run on the sweep engine, which is not ported yet
+# ---------------------------------------------------------------------------
+def spec_grid(*args, **kw):
+    """The datasets x modes x client_counts spec grid."""
+    raise _deferred("spec_grid", 2, "sweep")
+
+
+def run_grid(specs, shard=None):
+    """Run a spec grid on the sweep engine."""
+    raise _deferred("run_grid", 2, "sweep")
+
+
+def sweep_config_for_specs(specs):
+    """One (dataset, mode) spec group -> a SweepConfig."""
+    raise _deferred("sweep_config_for_specs", 2, "sweep")

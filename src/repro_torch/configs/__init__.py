@@ -4,7 +4,7 @@ module once.  The port of ``repro.configs``: the dense family (qwen2,
 qwen1.5, gemma2), the MoE family (deepseek-moe, mixtral), the ssm
 family (rwkv6) and the hybrid family (jamba) are listed; the others
 (vlm, audio) raise NotImplementedError from ``get_config``
-(ROADMAP.md, Queue 1 item 10).  The paper's MLPs
+(ROADMAP.md, Queue 1 item 6).  The paper's MLPs
 keep their own ``MLPConfig`` registry in ``paper_mlp``."""
 import importlib
 

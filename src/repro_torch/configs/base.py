@@ -216,7 +216,7 @@ def get_config(name: str):
         raise NotImplementedError(
             f"arch {name!r} belongs to a family repro_torch does not run "
             "yet (only the dense, MoE, ssm and hybrid families); see "
-            "ROADMAP.md, Queue 1 item 10")
+            "ROADMAP.md, Queue 1 item 6")
     raise KeyError(f"unknown arch {name!r}; known: {list_configs()}")
 
 

@@ -25,6 +25,10 @@ First-layer lanes (``ProtocolConfig.first_layer``):
            reference's ``pallas`` lane); its plain version on the CPU
   auto     kernel on a CUDA device, slice on the CPU
 
+``register_first_layer(name, make)`` adds a lane: ``make(model, pcfg,
+layout)`` returns ``first(params, xb, lay)``, the post-ReLU layer-0
+activations [n_clients, B, H].
+
 The lanes differ only in float summation order, so trajectories agree
 to allclose, not bitwise.
 
@@ -39,9 +43,14 @@ a host loop over the jitted step ("python").  Both names are accepted
 here and run the same Python loop over the round's batch-index matrix;
 capturing the step in a CUDA graph is later work.
 
+Randomness: ``train_generators(seed)`` gives the init generator, and
+round r draws its batches from ``round_generator(seed, r)`` alone (the
+reference's ``fold_in(loop_key, r)``), so a run resumed at round r
+replays rounds r.. without replaying the rounds before.
+
 Not ported yet (they raise NotImplementedError): non-sync ``schedule``,
 ``fault``, ``transform`` and ``obs`` plans -- ROADMAP.md, Queue 1
-item 8.
+item 4.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
 from repro_torch.metrics import accuracy, f1_score
 from repro_torch.models.mlp_model import PaperMLP
 from repro_torch.optim import adam
+from repro_torch.registry import Registry
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -82,7 +92,7 @@ class ProtocolConfig:
     n_samples: Optional[int] = None     # dataset size override (speed)
     engine: str = "scan"                # scan | python: the same loop here
     first_layer: str = "auto"           # auto | kernel | slice | masked
-    # Not ported yet: only the defaults run (ROADMAP.md Queue 1 item 8).
+    # Not ported yet: only the defaults run (ROADMAP.md Queue 1 item 4).
     schedule: str = "sync"
     fault: str = "none"
     transform: str = "none"
@@ -102,21 +112,26 @@ class ProtocolConfig:
         return self.max_clients or self.n_clients
 
 
-_UNPORTED_DEFAULTS = {"schedule": "sync", "fault": "none",
-                      "transform": "none", "obs": "none"}
+UNPORTED_DEFAULTS = {"schedule": "sync", "fault": "none",
+                     "transform": "none", "obs": "none"}
 ENGINES = ("scan", "python")
-FIRST_LAYERS = ("auto", "kernel", "masked", "slice")
 MODES = ("devertifl", "non_federated", "verticomb")
+
+
+def refuse_unported(cfg) -> None:
+    """Raise unless ``cfg``'s schedule, fault, transform and obs are
+    the defaults, the only values the port runs so far."""
+    for field, default in UNPORTED_DEFAULTS.items():
+        if getattr(cfg, field) != default:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r} is not ported to "
+                f"repro_torch yet (only {field}={default!r}); see "
+                "ROADMAP.md, Queue 1 item 4")
 
 
 def check_config(pcfg) -> None:
     """Refuse what this slice of the port does not run."""
-    for field, default in _UNPORTED_DEFAULTS.items():
-        if getattr(pcfg, field) != default:
-            raise NotImplementedError(
-                f"{field}={getattr(pcfg, field)!r} is not ported to "
-                f"repro_torch yet (only {field}={default!r}); see "
-                "ROADMAP.md, Queue 1 item 8")
+    refuse_unported(pcfg)
     if pcfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {pcfg.engine!r}; engines: "
                          f"{ENGINES}")
@@ -145,22 +160,44 @@ def arch_for(dataset: str) -> str:
     return DR.get_dataset(dataset).arch
 
 
-def auto_first_layer(device) -> str:
-    """What first_layer="auto" means on ``device``."""
+# First-layer lane registry: the built-in lanes and "auto" hold None
+# (they are implemented inline below); a registered lane holds a factory
+# ``make(model, pcfg, layout) -> first(params, xb, lay)``.
+FIRST_LAYERS = Registry("first_layer")
+for _name in ("auto", "kernel", "masked", "slice"):
+    FIRST_LAYERS.register(_name, None)
+
+
+def register_first_layer(name, make):
+    """Register a first-layer lane for ProtocolConfig / ExperimentSpec
+    ``first_layer=name``: ``make(model, pcfg, layout)`` returns
+    ``first(params, xb, lay)``, the post-ReLU layer-0 activations."""
+    return FIRST_LAYERS.register(name, make)
+
+
+def auto_first_layer(device=None) -> str:
+    """What first_layer="auto" means on ``device`` (on this machine when
+    None: kernel where CUDA is available).  ExperimentSpec resolves
+    "auto" through it at construction."""
+    if device is None:
+        return "kernel" if torch.cuda.is_available() else "slice"
     return "kernel" if torch.device(device).type == "cuda" else "slice"
 
 
 def resolve_first_layer(pcfg, device) -> str:
     """Map the first_layer knob to a concrete lane for ``device``."""
     fl = pcfg.first_layer
-    if fl not in FIRST_LAYERS:
-        raise ValueError(f"unknown first_layer {fl!r}; registered "
-                         f"first_layers: {', '.join(FIRST_LAYERS)}")
+    maker = FIRST_LAYERS.get(fl)    # unknown names raise with options
     if fl == "auto":
         fl = auto_first_layer(device)
-    if pcfg.exchange_at == 0:
+    if pcfg.exchange_at == 0 and fl != "masked":
         # exchanging the raw zero-padded input predates layer 0; only
         # the masked formulation expresses it
+        if maker is not None:
+            raise ValueError(
+                f"first_layer {fl!r} cannot express exchange_at=0 "
+                "(the exchange predates layer 0); use "
+                "first_layer='masked'")
         fl = "masked"
     return fl
 
@@ -218,6 +255,9 @@ def make_first_layer_fn(model, pcfg, layout, device):
     A dead (size-0) client gets relu(bias) in both."""
     fl = resolve_first_layer(pcfg, device)
     assert fl != "masked", fl
+    maker = FIRST_LAYERS.get(fl)
+    if maker is not None:           # a registered lane
+        return maker(model, pcfg, layout)
     offsets, sizes = layout.offsets, layout.sizes
 
     if fl == "slice":
@@ -459,14 +499,30 @@ def make_predict_fn(model, pcfg, layout, device):
     return predict
 
 
+def _generator(ss) -> torch.Generator:
+    return torch.Generator().manual_seed(
+        int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+
 def train_generators(seed: int):
     """(init generator, loop generator) for a federation seed: two
     independent CPU streams, so the initial weights and the epoch
-    permutations do not depend on each other (nor on the device)."""
-    init_ss, loop_ss = np.random.SeedSequence(seed).spawn(2)
-    return tuple(torch.Generator().manual_seed(
-        int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-        for ss in (init_ss, loop_ss))
+    permutations do not depend on each other (nor on the device).
+    Training draws round r's batches from ``round_generator(seed, r)``,
+    a stream of its own beneath the loop stream."""
+    return tuple(_generator(ss)
+                 for ss in np.random.SeedSequence(seed).spawn(2))
+
+
+def round_generator(seed: int, r: int) -> torch.Generator:
+    """Round r's batch-order generator: the counterpart of the
+    reference's ``fold_in(loop_key, r)``.  Its state depends only on
+    (seed, r) -- the loop stream's SeedSequence with r appended to its
+    spawn key -- so a resumed run draws round r's batches without
+    replaying rounds 0..r-1."""
+    loop_ss = np.random.SeedSequence(seed).spawn(2)[1]
+    return _generator(np.random.SeedSequence(
+        loop_ss.entropy, spawn_key=loop_ss.spawn_key + (int(r),)))
 
 
 # ---------------------------------------------------------------------------
@@ -527,12 +583,39 @@ class DeVertiFL:
         self._fedavg_fn = fedavg_fn
         self._build_steps()
 
+    # the sync path carries no schedule, fault, wire or obs state; the
+    # Session threads these through as the reference's does
+    def init_sched_state(self) -> dict:
+        """The exchange-schedule state a round carries: ``{}`` (sync)."""
+        return {}
+
+    def fault_telemetry(self, sched_state):
+        """Fault-event counters: None (no fault plan runs here)."""
+        return None
+
+    def wire_telemetry(self, sched_state):
+        """Bytes-on-wire counters: None (no transform runs here)."""
+        return None
+
+    def obs_series(self, sched_state):
+        """Per-round metric series: None (obs="none")."""
+        return None
+
     # ------------------------------------------------------------------
     def init_params(self, generator) -> dict:
         """A fresh stacked parameter tree on the device, drawn from
         ``generator`` (live clients first, then dead padding slots)."""
         return tree_map(lambda t: t.to(self.device),
                         self.model.init_params(generator))
+
+    def start(self, params, opt_state=None):
+        """Copy ``params`` into the model and return (the model's live
+        parameter tree, ``opt_state`` or a fresh optimizer state):
+        training updates the module's own parameters in place."""
+        self.model.load_params(params)
+        params = self.model.params()
+        return params, (self.opt.init(params) if opt_state is None
+                        else opt_state)
 
     def run_round(self, params, opt_state, step_idx, idx):
         """One round over the [epochs*n_batches, bs] index matrix
@@ -567,23 +650,23 @@ class DeVertiFL:
 
     # ------------------------------------------------------------------
     def train(self, seed=None, eval_every_round=True, engine=None):
-        """Train ``pcfg.rounds`` rounds from weights and permutations
-        drawn from ``train_generators(seed)`` (default ``pcfg.seed``)
-        into the model's parameters.  Returns {"history", "final",
+        """Train ``pcfg.rounds`` rounds from weights drawn from
+        ``train_generators(seed)`` and round r's permutations from
+        ``round_generator(seed, r)`` (default ``pcfg.seed``) into the
+        model's parameters.  Returns {"history", "final",
         "params"}, params a detached copy of the final tree."""
         pcfg = self.pcfg
         engine = engine or pcfg.engine
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}")
-        init_gen, loop_gen = train_generators(
-            pcfg.seed if seed is None else seed)
-        self.model.load_params(self.init_params(init_gen))
-        params = self.model.params()
-        opt_state = self.opt.init(params)
+        seed = pcfg.seed if seed is None else seed
+        init_gen, _ = train_generators(seed)
+        params, opt_state = self.start(self.init_params(init_gen))
         step_idx, history = 0, []
         for r in range(pcfg.rounds):
             params, opt_state, step_idx, losses = self.run_round(
-                params, opt_state, step_idx, self.perms(loop_gen))
+                params, opt_state, step_idx,
+                self.perms(round_generator(seed, r)))
             if eval_every_round:
                 ev = self.evaluate(params)
                 ev["round"] = r
@@ -593,3 +676,27 @@ class DeVertiFL:
         final = self.evaluate(params)
         return {"history": history, "final": final,
                 "params": tree_map(lambda p: p.detach().clone(), params)}
+
+
+def train_federation(device=None, **kw):
+    """DEPRECATED legacy front door, kept as a shim over
+    ``repro_torch.api``: ProtocolConfig-style kwargs (``seed=`` becomes
+    the spec's ``seeds=(seed,)``) run through ``build(spec,
+    device).run()``, returning the historical {"history", "final",
+    "params"} dict.  New code builds the spec itself::
+
+        from repro_torch.api import ExperimentSpec, build
+        result = build(ExperimentSpec(dataset="mnist", n_clients=5)).run()
+    """
+    import warnings
+    warnings.warn(
+        "train_federation(**kw) is deprecated; build a "
+        "repro_torch.api.ExperimentSpec and run it via "
+        "repro_torch.api.build(spec).run() instead", DeprecationWarning,
+        stacklevel=2)
+    from repro_torch.api import ExperimentSpec, build   # api sits above core
+    if "seed" in kw:
+        kw["seeds"] = (kw.pop("seed"),)
+    rr = build(ExperimentSpec(**kw), device=device).run()
+    return {"history": rr.history, "final": rr.metrics,
+            "params": rr.params}

@@ -18,7 +18,9 @@ import torch
 from repro_torch.tree import tree_map
 
 
-def _tensor(a, device, dtype):
+def tensor_from_array(a, device, dtype):
+    """One array as a tensor on ``device`` (in ``dtype``, or its own
+    when None; bfloat16 arrays through their uint16 bits)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -32,10 +34,12 @@ def params_from_numpy(tree, device, dtype=torch.float32) -> dict:
     tensors on ``device``: in ``dtype``, or each in its own dtype when
     ``dtype`` is None (an LM's bfloat16 weights, a cache's int32
     positions)."""
-    return tree_map(lambda a: _tensor(a, device, dtype), tree)
+    return tree_map(lambda a: tensor_from_array(a, device, dtype), tree)
 
 
-def _array(t):
+def array_from_tensor(t):
+    """One tensor as a host numpy array in its own dtype (bfloat16 as
+    ``ml_dtypes``' bfloat16)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes        # numpy's bfloat16, as the reference's arrays
@@ -47,7 +51,7 @@ def params_to_numpy(tree) -> dict:
     """A tree of tensors as numpy arrays (copied to the host), each in
     its own dtype: bfloat16 leaves as ``ml_dtypes``' bfloat16 (imported
     only for them), the inverse of ``params_from_numpy(..., dtype=None)``."""
-    return tree_map(_array, tree)
+    return tree_map(array_from_tensor, tree)
 
 
 def state_to_numpy(state) -> dict:

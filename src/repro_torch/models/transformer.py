@@ -3,7 +3,7 @@
 attention, Mamba and RWKV6 mixers, and the dense, layer-0 dense
 (``dense0``), MoE and RWKV channel-mix (``rwkv_cm``) FFNs (the dense,
 MoE, ssm and hybrid families).  Cross attention (the encoder-decoder
-audio family) raises NotImplementedError (ROADMAP.md, Queue 1 item 10).
+audio family) raises NotImplementedError (ROADMAP.md, Queue 1 item 6).
 
 Layer stacks keep the reference's (prefix, periodic-group) form and its
 parameter tree: the periodic part lives under ``"scanned"`` with a
@@ -42,7 +42,7 @@ def _unported(what):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (only the decoder-only "
         "text families: dense, MoE, ssm and hybrid); see ROADMAP.md, "
-        "Queue 1 item 10")
+        "Queue 1 item 6")
 
 
 # ---------------------------------------------------------------------------

@@ -118,12 +118,12 @@ def test_unported_families_raise_and_input_shapes_match(ref):
     assert sorted(UNPORTED) == ["llava-next-34b", "seamless-m4t-medium"]
     for name in UNPORTED:
         assert name in ref.configs.list_configs()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             get_config(name)
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v)
          for k, v in ref.configs.INPUT_SHAPES.items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         T.block_init(torch.Generator(), reduced_config("qwen2-7b"),
                      {"mixer": "attn", "ffn": "dense", "window": None,
                       "cross": True}, torch.float32)

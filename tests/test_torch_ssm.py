@@ -582,7 +582,7 @@ def test_unknown_kinds_and_hooks_raise(kind):
         lambda: T.block_decode({}, x[:, :1], torch.zeros(1), cfg, kind,
                                {})]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             call()
     with pytest.raises(TypeError, match="unknown kernel hooks"):
         build_model(cfg, scan=rwkv6_scan_ref)

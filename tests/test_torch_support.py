@@ -47,6 +47,9 @@ _REFERENCE_MODULES = {
     "ssm": "repro.models.ssm",
     "rwkv6": "repro.kernels.rwkv6_scan",
     "mamba": "repro.kernels.mamba_scan",
+    "api": "repro.api",
+    "baselines": "repro.core.baselines",
+    "checkpoint": "repro.checkpoint",
 }
 
 
