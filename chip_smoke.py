@@ -103,8 +103,24 @@ Phases, each printing one JSON line:
               bank_vs_splitnn, 2 of its 20 rounds) in devertifl and
               splitnn mode, each rerun bitwise, with steps/s and
               spec_hash
- 10. profile  where a training step's time goes (torch.profiler)
- 11. serve    serves qwen2-7b at full width and depth (28 layers,
+ 10. sweep    Fig. 3's paper grid (benchmarks/figures.py --paper: mnist,
+              clients 2..10 x seeds 0, 1, 2, 70,000 samples, 2 rounds
+              of 1 epoch) through repro_torch.api.run_grid: 27 lanes
+              padded to 10 slots (a client axis of 270) in one round,
+              vfl_matmul launched once a lane-batched step and once an
+              evaluation (1,751; the count set to 0 just before, read
+              just after); the grid rerun bitwise and round 1 again from
+              fresh draws bitwise; lanes (2, 0), (5, 1), (10, 2) within
+              LANE_RTOL of their standalone DeVertiFL rounds; their
+              slices of one stacked launch each bitwise a launch of the
+              lane alone, with a planted fault (x_offsets without the
+              lane's l*F) failing; kernels a step at 27 lanes within 5%
+              of one lane (torch.profiler, differing kernels named);
+              the grid's cell 5 against a multi-seed Session (F1 within
+              0.002, final loss within LANE_RTOL); lane-steps/s,
+              cells/s, busy share, peak GB, F1 per cell
+ 11. profile  where a training step's time goes (torch.profiler)
+ 12. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -114,7 +130,7 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
- 12. serve_moe
+ 13. serve_moe
               after qwen2-7b's memory is released, serves
               deepseek-moe-16b at full width and depth (28 layers, 64
               routed experts top-6 + 2 shared, random bf16 weights drawn
@@ -129,7 +145,7 @@ Phases, each printing one JSON line:
               that check; the logits against a prefill routed by the
               plain version; then one decode step and one prefill
               under torch.profiler
- 13. serve_rwkv
+ 14. serve_rwkv
               after deepseek-moe-16b's memory is released, serves
               rwkv6-1.6b at full width and depth (24 layers, random bf16
               weights drawn on the card) with the same 12 requests'
@@ -144,7 +160,7 @@ Phases, each printing one JSON line:
               prefill(prompt[:n + 1]), on the logits and every layer's
               state, which a decode from a zeroed state must fail; then
               one decode step and one prefill under torch.profiler
- 14. serve_hybrid
+ 15. serve_hybrid
               after rwkv6-1.6b's memory is released, serves
               jamba-v0.1-52b at full width and cut depth (16 of its 32
               layers: 103.15 GB of bf16 weights do not fit the card's
@@ -165,6 +181,7 @@ and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -1745,6 +1762,7 @@ def phase_train(kernel_row, pcfg) -> None:
           "vfl_matmul_launches": launches,
           "kernel_vs_slice_max_rel": rel, "lane_rtol": LANE_RTOL,
           "rerun_bitwise": True})
+    out["steps_per_s"] = steps / train_s
     return out
 
 
@@ -1908,6 +1926,323 @@ def phase_api(train_out, pcfg) -> None:
           "checkpoint": ckpt, "table2_bank": rows,
           "reduced": "bank_vs_splitnn (benchmarks/table2.py): 2 of its "
                      "20 rounds",
+          "phase_s": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# the sweep: Fig. 3's paper grid as lanes of one batched round
+SWEEP_COUNTS = tuple(range(2, 11))      # benchmarks/figures.py --paper
+SWEEP_SEEDS = (0, 1, 2)
+SWEEP_SAMPLES, SWEEP_ROUNDS = 70000, 2   # cut from 15 x 5 epochs
+SWEEP_LANES = ((2, 0), (5, 1), (10, 2))  # held to standalone runs
+SWEEP_PROFILE_STEPS = 20
+# kernels a step at 27 lanes against one lane of the same config: the
+# per-client layers run once for all lanes, so the count must not grow
+# with L (a per-lane loop would multiply it)
+KERNELS_PER_STEP_RTOL = 0.05
+# the grid's cell 5 against a multi-seed Session of the same cell, which
+# runs its seeds as 3 unpadded lanes: F1 within the CPU tests' limit
+SWEEP_CELL, SWEEP_F1_TOL = 5, 0.002
+
+
+def _kernel_counts(prof) -> dict:
+    """Launches of each device kernel in a torch.profiler run."""
+    counts = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and ev.device_type.name == "CUDA":
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return counts
+
+
+def _backward_ops(prof, steps) -> dict:
+    """Device ms a step of vfl_matmul's backward (``_VflMatmul``'s
+    node, inclusive) and of each op it calls, by name: the xw gather is
+    ``aten::index``, its product ``aten::bmm``."""
+    def ms(ev):
+        return getattr(ev, "device_time_total",
+                       getattr(ev, "cuda_time_total", 0)) / 1e3 / steps
+    total, ops = 0.0, {}
+    for ev in prof.events():
+        if ev.name == "_VflMatmulBackward":
+            total += ms(ev)
+            for child in ev.cpu_children:
+                ops[child.name] = ops.get(child.name, 0.0) + ms(child)
+    return {"ms_per_step": total,
+            "ops_ms_per_step": dict(sorted(
+                ((k, v) for k, v in ops.items() if v > 0),
+                key=lambda kv: -kv[1]))}
+
+
+def _lane_step_profile(lb):
+    """A short round of ``lb`` (SWEEP_PROFILE_STEPS steps and its
+    FedAvg) under torch.profiler, after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+    params, opt_state = lb.fresh_state()
+    idx = lb.round_indices(0)[:, :SWEEP_PROFILE_STEPS]
+    lb.round_fn(params, opt_state, 0, idx, lb.xtr, lb.ytr, lb.lay)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lb.round_fn(params, opt_state, 0, idx, lb.xtr, lb.ytr, lb.lay)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _profile_rows(prof, wall_ms, SWEEP_PROFILE_STEPS)
+    rows["vfl_matmul_backward"] = _backward_ops(prof, SWEEP_PROFILE_STEPS)
+    return rows, _kernel_counts(prof)
+
+
+def _stacked_launch(lb, xb, calls) -> dict:
+    """One stacked first-layer launch of the lane batch on xb [M, L, F]
+    (L*max_c clients, Kx = L*F, x_off = l*F + off != w_off = off): the
+    whole output held against the plain version; the three SWEEP_LANES'
+    slices are each a launch of that lane alone, bitwise; a planted
+    fault (x_offsets without the lane's l*F: every lane reads lane 0's
+    columns) must fail that; times beside the plain version, the bound
+    and one library call (``calls`` a CUDA graph)."""
+    from repro_torch.core.sweep import lane_arrays
+    from repro_torch.kernels.vfl_matmul import (ops, vfl_matmul_clients,
+                                                vfl_matmul_clients_ref)
+    flat = lane_arrays(lb.lay)
+    n_lanes, c, n_features = lb.lay.masks.shape
+    m = xb.shape[0]
+    x = xb.reshape(m, n_lanes * n_features)
+    w = lb.params["layer_0"]["kernel"].detach()
+    n_out = w.shape[-1]
+    args = (x, w, flat.x_offsets, flat.offsets, flat.sizes)
+    with torch.no_grad():
+        launches = vfl_matmul_clients.launches
+        y = vfl_matmul_clients(*args)
+        planted = vfl_matmul_clients(x, w, flat.offsets, flat.offsets,
+                                     flat.sizes)
+        bitwise = {}
+        for nc, s in SWEEP_LANES:
+            li = lb.lanes.index((nc, s))
+            one = slice(li * c, (li + 1) * c)
+            off = lb.lay.offsets[li].contiguous()
+            alone = vfl_matmul_clients(xb[:, li].contiguous(),
+                                       w[one].contiguous(), off, off,
+                                       lb.lay.sizes[li].contiguous())
+            bitwise[f"{nc}/{s}"] = bool(torch.equal(y[one], alone))
+            check(bitwise[f"{nc}/{s}"],
+                  f"sweep: lane ({nc}, {s})'s slice of the stacked launch "
+                  f"at M = {m} is not its launch alone")
+            if li:
+                check(not torch.equal(planted[one], alone),
+                      f"sweep: the planted lane-offset fault passed at "
+                      f"lane ({nc}, {s}), M = {m}")
+        del planted
+        sizes = [int(v) for v in flat.sizes.tolist()]
+        offs = [int(v) for v in flat.offsets.tolist()]
+        xoffs = [int(v) for v in flat.x_offsets.tolist()]
+        max_abs_err = assert_close(
+            f"stacked lanes vs plain at M = {m}", y,
+            vfl_matmul_clients_ref(x, w, xoffs, offs, sizes))
+        # the library yardstick: one bmm of each lane's x against its
+        # clients' W zeroed outside their slices, side by side on N
+        x_lanes = xb.transpose(0, 1).contiguous()          # [L, M, F]
+        w_lanes = (w * flat.masks[:, :, None]).reshape(
+            n_lanes, c, n_features, n_out).transpose(1, 2).reshape(
+            n_lanes, n_features, c * n_out).contiguous()   # [L, F, c*N]
+        lib = torch.bmm(x_lanes, w_lanes).reshape(
+            n_lanes, m, c, n_out).transpose(1, 2).reshape_as(y)
+        assert_close(f"stacked library yardstick at M = {m}", lib, y)
+        del lib, y
+        times = {"ms": device_ms(lambda: vfl_matmul_clients(*args),
+                                 calls=calls),
+                 "plain_ms": device_ms(lambda: vfl_matmul_clients_ref(
+                     x, w, xoffs, offs, sizes), calls=5, replays=2),
+                 "library_ms": device_ms(
+                     lambda: torch.bmm(x_lanes, w_lanes), calls=calls)}
+        vfl_matmul_clients.launches = launches
+    k_sum = sum(sizes)
+    nbytes = 4 * (m * k_sum + k_sum * n_out + len(sizes) * m * n_out) \
+        + 3 * 4 * len(sizes)
+    flops = 2 * m * n_out * k_sum
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    p = ops.plan(m, x.shape[1], w.shape[1], n_out, len(sizes))
+    return {"M": m, "clients": len(sizes), "Kx": x.shape[1],
+            "Kw": w.shape[1], "N": n_out, **times,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "max_abs_err": max_abs_err,
+            "plan": {"kernel": p.kernel, "grid": list(p.grid),
+                     "threads": p.threads, "smem_bytes": p.smem},
+            "lanes_bitwise_alone": bitwise,
+            "planted_lane_offset_fault": "fails"}
+
+
+def _lanes_vs_standalone(losses, lanes) -> dict:
+    """Round 1 of SWEEP_LANES from the lane batch against
+    ``DeVertiFL.run_round`` of each lane's standalone federation from
+    the same draws."""
+    from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
+                                           round_generator,
+                                           train_generators)
+    out = {}
+    for nc, s in SWEEP_LANES:
+        fed = DeVertiFL(ProtocolConfig(dataset="mnist", n_clients=nc,
+                                       n_samples=SWEEP_SAMPLES, seed=s,
+                                       rounds=SWEEP_ROUNDS, epochs=1),
+                        device="cuda")
+        params = fed.init_params(train_generators(s)[0])
+        _, _, _, solo = fed.run_round(params, fed.opt.init(params), 0,
+                                      fed.perms(round_generator(s, 0)))
+        lane = losses[lanes.index((nc, s))]
+        solo = solo.cpu()
+        rel = float(((lane - solo).abs() / solo.abs()).max())
+        check(torch.allclose(lane, solo, rtol=LANE_RTOL, atol=0.0),
+              f"sweep: lane ({nc}, {s}) round-1 losses vs its standalone "
+              f"run: max rel diff {rel} > rtol {LANE_RTOL}")
+        out[f"{nc}/{s}"] = {"max_rel": rel,
+                            "bitwise": bool(torch.equal(lane, solo))}
+    return out
+
+
+def phase_sweep(kernel_row, train_steps_per_s) -> None:
+    """Fig. 3's paper grid (benchmarks/figures.py --paper: clients 2..10
+    x seeds 0, 1, 2) at the full mnist set through
+    ``repro_torch.api.run_grid``: 27 lanes of one round, one
+    ``vfl_matmul`` launch a step (the count set to 0 just before, read
+    just after); the grid rerun bitwise; lanes against standalone runs;
+    the stacked launch against the plain version and each lane alone,
+    at the step's shape and the evaluation's; kernels a step at 27
+    lanes against one; the grid's cell 5 against a multi-seed Session."""
+    from repro_torch.api import ExperimentSpec, build, run_grid, spec_grid
+    from repro_torch.api.session import sweep_config_for_specs
+    from repro_torch.core import sweep as SW
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    t_phase = time.perf_counter()
+    specs = spec_grid(datasets=("mnist",), modes=("devertifl",),
+                      client_counts=SWEEP_COUNTS, seeds=SWEEP_SEEDS,
+                      rounds=SWEEP_ROUNDS, epochs=1,
+                      n_samples=SWEEP_SAMPLES)
+    check(all(s.first_layer == "kernel" for s in specs),
+          "sweep specs' first_layer is not 'kernel'")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vfl_matmul_clients.launches = 0
+    t0 = time.perf_counter()
+    grid = run_grid(specs)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    launches = vfl_matmul_clients.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cells = [grid["cells"][f"mnist/devertifl/{nc}"] for nc in SWEEP_COUNTS]
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for cell in cells
+              for v in cell["f1_per_seed"] + cell["acc_per_seed"])
+          and all(math.isfinite(cell["final_loss_mean"]) for cell in cells),
+          "sweep: a cell's metrics are not finite in [0, 1]")
+    wall = cells[0]["wall_s"]
+    lane_steps_per_s = sum(cell["steps_per_sec"] for cell in cells)
+
+    # the same lane batch again: the grid rerun bitwise, round 1 once
+    # more from fresh draws, the lanes against standalone runs
+    ds, mode, scfg = sweep_config_for_specs(specs)
+    lb = SW.build_lane_batch(ds, mode, scfg)
+    n_lanes, c = lb.lay.client_mask.shape
+    expected = SWEEP_ROUNDS * lb.n_batches + 1
+    check(launches == expected,
+          f"sweep: vfl_matmul launched {launches} times, expected "
+          f"{expected} (one a lane-batched step, one evaluation)")
+    params, opt_state, step = lb.params, lb.opt_state, 0
+    round_losses = []
+    for r in range(SWEEP_ROUNDS):
+        params, opt_state, step, losses = lb.round_fn(
+            params, opt_state, step, lb.round_indices(r), lb.xtr, lb.ytr,
+            lb.lay)
+        round_losses.append(losses.cpu())
+    preds = lb.predict_fn(params, lb.xte, lb.lay).cpu().numpy()
+    f1s, _ = SW._lane_metrics(preds, lb.yte.cpu().numpy(),
+                              lb.ytr.cpu().numpy(), lb.lanes)
+    s = len(SWEEP_SEEDS)
+    check(f1s == [f for cell in cells for f in cell["f1_per_seed"]]
+          and all(float(round_losses[-1][ci * s:(ci + 1) * s, -1].numpy()
+                        .mean()) == cell["final_loss_mean"]
+                  for ci, cell in enumerate(cells)),
+          "sweep: the grid rerun is not bitwise")
+    fresh = lb.fresh_state()
+    _, _, _, again = lb.round_fn(*fresh, 0, lb.round_indices(0), lb.xtr,
+                                 lb.ytr, lb.lay)
+    check(torch.equal(again.cpu(), round_losses[0]),
+          "sweep: round 1 rerun from fresh draws is not bitwise")
+    vs_standalone = _lanes_vs_standalone(round_losses[0], lb.lanes)
+    # the stacked launch at the step's shape (M = 64, the wave kernel)
+    # and at the evaluation's (the test set, the ring kernel)
+    lanes = torch.arange(n_lanes, device="cuda")[None, :]
+    stacked = _stacked_launch(
+        lb, lb.xtr[lanes, lb.round_indices(0)[:, 0].t()], calls=100)
+    stacked_eval = _stacked_launch(lb, lb.xte.transpose(0, 1), calls=10)
+    check(stacked["plan"]["kernel"] == "wave"
+          and stacked_eval["plan"]["kernel"] == "ring",
+          f"sweep: the stacked launches ran {stacked['plan']['kernel']} "
+          f"and {stacked_eval['plan']['kernel']}, not wave and ring")
+
+    # kernels a step at 27 lanes against one lane of the same config
+    profile_27, counts_27 = _lane_step_profile(lb)
+    lb_batches = lb.n_batches
+    del lb, params, opt_state, fresh
+    _release()
+    one = SW.build_lane_batch(ds, mode, dataclasses.replace(
+        scfg, client_counts=(max(SWEEP_COUNTS),), seeds=(0,)))
+    profile_1, counts_1 = _lane_step_profile(one)
+    del one
+    _release()
+    k27, k1 = profile_27["kernels_per_step"], profile_1["kernels_per_step"]
+    differ = {k[:80]: [counts_1.get(k, 0), counts_27.get(k, 0)]
+              for k in sorted(set(counts_1) | set(counts_27))
+              if counts_1.get(k, 0) != counts_27.get(k, 0)}
+    check(abs(k27 - k1) <= KERNELS_PER_STEP_RTOL * k1,
+          f"sweep: {k27} kernels a step at {n_lanes} lanes against {k1} "
+          f"at one (differing: {differ})")
+
+    # two paths to cell 5: the grid's padded lanes, and a multi-seed
+    # Session (run_cell: 3 unpadded lanes)
+    sess = build(ExperimentSpec(dataset="mnist", n_clients=SWEEP_CELL,
+                                seeds=SWEEP_SEEDS, rounds=SWEEP_ROUNDS,
+                                epochs=1, n_samples=SWEEP_SAMPLES)).run()
+    cell5 = grid["cells"][f"mnist/devertifl/{SWEEP_CELL}"]
+    f1_diff = abs(sess.metrics["f1"] - cell5["f1_mean"])
+    loss_rel = abs(sess.metrics["final_loss_mean"]
+                   - cell5["final_loss_mean"]) / abs(cell5["final_loss_mean"])
+    check(f1_diff <= SWEEP_F1_TOL and loss_rel <= LANE_RTOL,
+          f"sweep: the Session's cell {SWEEP_CELL} (F1 "
+          f"{sess.metrics['f1']}, loss {sess.metrics['final_loss_mean']}) "
+          f"against the grid's "
+          f"({cell5['f1_mean']}, {cell5['final_loss_mean']})")
+
+    row_keys = ("M", "clients", "Kx", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err")
+    kernel_row["sweep"] = {k: stacked[k] for k in row_keys}
+    kernel_row["sweep"]["launches"] = launches
+    kernel_row["sweep_eval"] = {k: stacked_eval[k] for k in row_keys}
+    emit({"phase": "sweep", "grid": "fig3 --paper: mnist, clients 2..10 "
+          "x seeds 0, 1, 2, n_samples 70000",
+          "reduced": "2 rounds of 1 epoch (figures.py: 15 x 5 at 6,000 "
+                     "samples)",
+          "lanes": n_lanes, "client_axis": n_lanes * c,
+          "steps": SWEEP_ROUNDS * lb_batches, "grid_s": grid_s,
+          "wall_s": wall,
+          "lane_steps_per_s": lane_steps_per_s,
+          "cells_per_sec": len(cells) / wall,
+          "train_phase_steps_per_s": train_steps_per_s,
+          "vfl_matmul_launches": launches, "peak_gb": peak_gb,
+          "f1": {cell["n_clients"]: cell["f1_mean"] for cell in cells},
+          "f1_per_seed": {cell["n_clients"]: cell["f1_per_seed"]
+                          for cell in cells},
+          "rerun_bitwise": True, "lanes_vs_standalone": vs_standalone,
+          "lane_rtol": LANE_RTOL, "stacked_launch": stacked,
+          "stacked_launch_eval": stacked_eval,
+          "kernels_per_step": {"lanes_27": k27, "lanes_1": k1,
+                               "differ": differ},
+          "profile_27_lanes": profile_27, "profile_1_lane": profile_1,
+          "session_cell5": {"f1": sess.metrics["f1"],
+                            "grid_f1": cell5["f1_mean"], "f1_diff": f1_diff,
+                            "final_loss_rel": loss_rel,
+                            "steps_per_s": sess.telemetry.steps_per_sec},
           "phase_s": time.perf_counter() - t_phase})
 
 
@@ -2563,6 +2898,7 @@ def main() -> None:
                           rounds=2, epochs=1, batch_size=64)
     train_out = phase_train(kernel_row, pcfg)
     phase_api(train_out, pcfg)
+    phase_sweep(kernel_row, train_out["steps_per_s"])
     phase_profile(pcfg.replace(n_samples=4000))
     phase_serve(attn_row)
     phase_serve_moe(router_row, attn_row)

@@ -15,9 +15,14 @@ it into a :class:`Session` and run::
 
 ``build(spec, device="cpu")`` runs on the CPU.  Extend an axis through
 the registries: :func:`register_dataset`, :func:`register_mode`,
-:func:`register_first_layer`.  Spec grids (``spec_grid``,
-``run_grid``) wait for the sweep engine (ROADMAP.md, Queue 1 item 2);
-the schedule and serving names for items 4 and 5.
+:func:`register_first_layer`.  A spec grid runs one lane batch a
+(dataset, mode) on the sweep engine (``repro_torch.core.sweep``)::
+
+    grid = run_grid(spec_grid(datasets=("titanic",), modes=("devertifl",),
+                              client_counts=(2, 3), seeds=(0, 1)))
+
+and takes ``device="cpu"`` as ``build`` does.  The schedule and serving
+names wait for ROADMAP.md, Queue 1 items 4 and 5.
 """
 from repro_torch.api.spec import ExperimentSpec, HASH_EXCLUDE  # noqa: F401
 from repro_torch.api.modes import (  # noqa: F401

@@ -23,11 +23,16 @@ phase on the card):
     run (round r consumes only the carried state and its own
     generator), and its checkpoints carry the reference's keys and
     stamps, so a checkpoint crosses between the packages;
-  * ``spec_hash`` is the reference's for equal fields.
+  * ``spec_hash`` is the reference's for equal fields;
+  * a multi-seed federated Session runs its seeds as unpadded lanes of
+    one round (``core.sweep.run_cell``), and a spec grid
+    (``spec_grid`` -> ``run_grid``) one lane batch a (dataset, mode)
+    (``core.sweep.run_padded_cells``), with the reference's validation
+    errors, keys and per-cell ``spec_hash``.
 
-Still waiting: multi-seed federated sessions and spec grids
-(ROADMAP.md, Queue 1 item 2), ``server``/``serve`` (item 5), a
-``RetryPolicy`` (item 4).
+Still waiting: ``server``/``serve`` (ROADMAP.md, Queue 1 item 5), a
+``RetryPolicy`` and the non-default schedule/fault/transform/obs axes
+(item 4).
 """
 from __future__ import annotations
 
@@ -48,8 +53,9 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.checkpoint import (CheckpointCorruptError,
                                     checkpoint_steps, load_checkpoint,
                                     load_entry, save_checkpoint)
+from repro_torch.core import sweep as SW
 from repro_torch.core.baselines import SplitNN, SplitNNConfig
-from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
+from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig, deferred,
                                        resolve_device, round_generator,
                                        train_generators)
 from repro_torch.obs import NullTracer, Telemetry
@@ -70,12 +76,6 @@ def _hash_array(hex_hash: str) -> np.ndarray:
 # checkpoints and resume() verifies; the port runs only the defaults,
 # whose stamp is the hash of "schedule:sync"
 _STREAM_STAMP = hashlib.sha256(b"schedule:sync").hexdigest()[:16]
-
-
-def _deferred(what, item, name):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
-        f"Queue 1 item {item} ({name})")
 
 
 @lru_cache(maxsize=1)
@@ -154,12 +154,26 @@ def _protocol_config(spec: ExperimentSpec, internal: str) -> ProtocolConfig:
         max_clients=spec.max_clients)
 
 
+def _sweep_config(spec: ExperimentSpec, client_counts) -> SW.SweepConfig:
+    """The SweepConfig of ``spec``'s cells at ``client_counts``.  A
+    grid's schedule, fault and transform axes are the spec's own: the
+    port constructs no spec with another (Queue 1 item 4)."""
+    return SW.SweepConfig(
+        client_counts=tuple(client_counts), seeds=spec.seeds,
+        rounds=spec.rounds, epochs=spec.epochs,
+        batch_size=spec.batch_size, lr=spec.lr,
+        exchange_at=spec.exchange_at, fedavg=spec.fedavg,
+        n_samples=spec.n_samples, first_layer=spec.first_layer,
+        schedules=(spec.schedule,), faults=(spec.fault,),
+        transforms=(spec.transform,), obs=(spec.obs,))
+
+
 def _check_retry(retry) -> None:
     """"auto" resolves to no policy (``fault`` is "none"); None/False
     disable it; a RetryPolicy waits for its module."""
     if retry not in ("auto", None, False):
-        raise _deferred("retry= with a RetryPolicy", 4,
-                        "schedule/faults/wire/obs")
+        raise deferred("retry= with a RetryPolicy", 4,
+                       "schedule/faults/wire/obs")
 
 
 class Session:
@@ -239,7 +253,7 @@ class Session:
         if self.mode.kind == "splitnn":
             return self._run_splitnn()
         if len(spec.seeds) > 1:
-            raise _deferred("a multi-seed federated session", 2, "sweep")
+            return self._run_cell()
         return self._run_federated(key=key)
 
     def resume(self, retry="auto") -> RunResult:
@@ -352,11 +366,11 @@ class Session:
 
     def server(self, params=None, **server_kw):
         """Federated serving (the reference's ``FederatedServer``)."""
-        raise _deferred("Session.server()", 5, "serving/federated.py")
+        raise deferred("Session.server()", 5, "serving/federated.py")
 
     def serve(self, requests, params=None, **server_kw):
         """Batch serving over :meth:`server`."""
-        raise _deferred("Session.serve()", 5, "serving/federated.py")
+        raise deferred("Session.serve()", 5, "serving/federated.py")
 
     # ------------------------------------------------------------------
     def _run_federated(self, key=None, start_round=0, state=None,
@@ -410,6 +424,24 @@ class Session:
                             tree_map(lambda p: p.detach().clone(), params),
                             telemetry, resumed_from=resumed_from)
 
+    def _run_cell(self) -> RunResult:
+        """The spec's seeds as unpadded lanes of one round
+        (``core.sweep.run_cell``); keeps no params."""
+        spec = self.spec
+        cell = SW.run_cell(spec.dataset, self.mode.internal,
+                           spec.n_clients,
+                           _sweep_config(spec, (spec.n_clients,)),
+                           device=self.device)
+        metrics = {"f1": cell["f1_mean"], "acc": cell["acc_mean"],
+                   "f1_std": cell["f1_std"],
+                   "f1_per_seed": cell["f1_per_seed"],
+                   "acc_per_seed": cell["acc_per_seed"],
+                   "final_loss_mean": cell["final_loss_mean"],
+                   "seeds": cell["seeds"]}
+        telemetry = Telemetry(wall_s=cell["wall_s"],
+                              steps_per_sec=cell["steps_per_sec"])
+        return self._result(metrics, [], None, telemetry)
+
     def _splitnn_config(self, seed) -> SplitNNConfig:
         spec = self.spec
         return SplitNNConfig(
@@ -460,18 +492,126 @@ def build(spec: ExperimentSpec, device=None) -> Session:
 
 
 # ---------------------------------------------------------------------------
-# spec grids: they run on the sweep engine, which is not ported yet
+# spec grids
 # ---------------------------------------------------------------------------
-def spec_grid(*args, **kw):
-    """The datasets x modes x client_counts spec grid."""
-    raise _deferred("spec_grid", 2, "sweep")
+# grid cells must agree on everything but (dataset, mode, transform,
+# fault, schedule, n_clients): a (dataset, mode) group is one lane batch
+_GRID_COMMON = ("seeds", "rounds", "epochs", "batch_size", "lr",
+                "exchange_at", "fedavg", "engine", "first_layer",
+                "n_samples", "shard", "obs")
 
 
-def run_grid(specs, shard=None):
-    """Run a spec grid on the sweep engine."""
-    raise _deferred("run_grid", 2, "sweep")
+def spec_grid(datasets=("mnist", "fmnist", "titanic", "bank"),
+              modes=("devertifl", "non_federated", "verticomb"),
+              client_counts=(2, 3, 5), seeds=(0, 1, 2),
+              schedules=("sync",), faults=("none",),
+              transforms=("none",), **common):
+    """The cartesian datasets x modes x transforms x faults x schedules
+    x client_counts spec grid, as the reference builds it.  ``common``
+    forwards to every ExperimentSpec (rounds=, epochs=, first_layer=,
+    ...).  Only the default schedule, fault and transform run here
+    (ROADMAP.md, Queue 1 item 4): ExperimentSpec refuses the others."""
+    return tuple(
+        ExperimentSpec(dataset=ds, mode=mode, n_clients=nc, seeds=seeds,
+                       schedule=sched, fault=f, transform=t, **common)
+        for ds in datasets for mode in modes for t in transforms
+        for f in faults for sched in schedules for nc in client_counts)
+
+
+def _grid_groups(specs):
+    """Group a spec sequence by (dataset, mode) preserving order, after
+    validating grid homogeneity.  Returns [((ds, mode), [spec, ...])]."""
+    specs = list(specs)
+    if not specs:
+        raise ValueError("empty spec grid")
+    for s in specs:
+        if not isinstance(s, ExperimentSpec):
+            raise TypeError(f"spec grids hold ExperimentSpec items, got "
+                            f"{type(s).__name__}")
+        for f in _GRID_COMMON:
+            if getattr(s, f) != getattr(specs[0], f):
+                raise ValueError(
+                    f"grid specs must agree on {f!r} (they share one "
+                    f"compiled round per dataset x mode): "
+                    f"{getattr(s, f)!r} != {getattr(specs[0], f)!r}")
+        if s.engine != "scan":
+            raise ValueError("grids run on the vmapped sweep engine "
+                             "(engine='scan')")
+        if s.max_clients is not None:
+            raise ValueError("grids pad the client axis automatically; "
+                             "leave max_clients=None")
+        if get_mode(s.mode).kind != "federated":
+            raise ValueError(f"mode {s.mode!r} is not a federated mode; "
+                             "grids run federated cells (run splitnn "
+                             "rows as standalone sessions)")
+    groups = {}
+    for s in specs:
+        g = groups.setdefault((s.dataset, s.mode), [])
+        if any(p.n_clients == s.n_clients and p.schedule == s.schedule
+               and p.fault == s.fault and p.transform == s.transform
+               for p in g):
+            raise ValueError(f"duplicate grid cell {s.dataset}/{s.mode}/"
+                             f"{s.transform}/{s.fault}/{s.schedule}/"
+                             f"{s.n_clients}")
+        g.append(s)
+    return list(groups.items())
+
+
+def _group_axes(group):
+    """Ordered-unique (client_counts, schedules, faults, transforms) of
+    one (dataset, mode) spec group; the group must cover the full
+    transform x fault x schedule x count cartesian."""
+    counts, schedules, faults, transforms = [], [], [], []
+    for s in group:
+        for axis, v in ((counts, s.n_clients), (schedules, s.schedule),
+                        (faults, s.fault), (transforms, s.transform)):
+            if v not in axis:
+                axis.append(v)
+    want = {(t, f, sc, nc) for t in transforms for f in faults
+            for sc in schedules for nc in counts}
+    got = {(s.transform, s.fault, s.schedule, s.n_clients)
+           for s in group}
+    if got != want or len(group) != len(want):
+        raise ValueError(
+            f"spec grid group {group[0].dataset}/{group[0].mode} must "
+            f"cover the full transform x fault x schedule x "
+            f"client-count cartesian {sorted(want)}; got {sorted(got)}")
+    return (tuple(counts), tuple(schedules), tuple(faults),
+            tuple(transforms))
 
 
 def sweep_config_for_specs(specs):
-    """One (dataset, mode) spec group -> a SweepConfig."""
-    raise _deferred("sweep_config_for_specs", 2, "sweep")
+    """One (dataset, mode) spec group -> (dataset, internal_mode,
+    SweepConfig) for ``core.sweep.run_padded_cells``."""
+    groups = _grid_groups(specs)
+    if len(groups) != 1:
+        raise ValueError(
+            f"expected one (dataset, mode) group, got "
+            f"{[f'{ds}/{m}' for (ds, m), _ in groups]}; use "
+            "repro_torch.api.run_grid for multi-group spec grids")
+    (ds, mode), group = groups[0]
+    return ds, get_mode(mode).internal, _sweep_config(
+        group[0], _group_axes(group)[0])
+
+
+def run_grid(specs, shard=None, device=None):
+    """Run a spec grid on ``device`` (CUDA unless the caller names
+    another): one lane batch a (dataset, mode) group, exactly
+    ``core.sweep.run_grid``'s execution and schema ({"cells":
+    {"ds/mode/n": cell}, "compare": ...}), each cell stamped with the
+    ``spec_hash`` of the spec that produced it.  ``shard`` overrides
+    the specs' shard policy."""
+    cells, compare = {}, {}
+    for (ds, mode), group in _grid_groups(specs):
+        out = SW.run_padded_cells(
+            ds, get_mode(mode).internal,
+            _sweep_config(group[0], _group_axes(group)[0]),
+            shard=group[0].shard if shard is None else shard,
+            device=device)
+        for s in group:
+            cell = out["cells"][s.n_clients]
+            cell["spec_hash"] = s.spec_hash
+            cells[f"{ds}/{mode}/{s.n_clients}"] = cell
+            compare.setdefault(f"{ds}/{s.n_clients}", {})[mode] = \
+                cell["f1_mean"]
+    return {"cells": cells, "compare": compare}

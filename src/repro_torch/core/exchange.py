@@ -5,12 +5,25 @@
 The JAX package wraps their cross-client terms in
 ``repro.analysis.barrier.tag``, an identity outside its static audit;
 the port drops it until the auditor is ported.
+
+Lane batches: the JAX package runs a sweep's federations as lanes of a
+``vmap``; the port stacks them on the client axis instead, lane-major
+(``repro_torch.core.sweep``).  A ``client_mask`` of shape [L, n] says
+so: the client axis holds L lanes of n slots, and every cross-client
+reduction here runs within a lane.  A [n] mask is one federation.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.tree import tree_map
+
+
+def by_lane(t, client_mask):
+    """``t``'s client axis ([L*n, ...] or [n, ...]) viewed in
+    ``client_mask``'s shape ([L, n] or [n]): reduce over dim
+    ``client_mask.dim() - 1`` to reduce within each lane."""
+    return t.reshape(client_mask.shape + t.shape[1:])
 
 
 def hidden_output_exchange(h_all, differentiable=False, client_mask=None):
@@ -24,15 +37,19 @@ def hidden_output_exchange(h_all, differentiable=False, client_mask=None):
     client_mask ([n_clients], 1.0 = live) excludes dead padding slots
     from the sum: a dead client adds an exact +0.0 term, so the live
     clients' sum keeps the unpadded bits.  Dead rows of the output are
-    garbage; the protocol masks them out downstream.
+    garbage; the protocol masks them out downstream.  A [L, n] mask
+    sums within each of L lanes (module doc).
     """
-    hm = h_all if client_mask is None else \
-        h_all * client_mask[:, None, None]
-    total = hm.sum(dim=0, keepdim=True)                  # [1, B, H]
+    if client_mask is None:
+        hm, dim = h_all, 0
+    else:
+        hm = by_lane(h_all, client_mask) * client_mask[..., None, None]
+        dim = client_mask.dim() - 1
+    total = hm.sum(dim=dim, keepdim=True)               # [(L,) 1, B, H]
     if differentiable:
-        return total.expand_as(h_all)
+        return total.expand_as(hm).reshape(h_all.shape)
     peers = (total - hm).detach()                         # data, no grad
-    return h_all + peers
+    return h_all + peers.reshape(h_all.shape)
 
 
 def fedavg(stacked_params, client_mask=None):
@@ -43,16 +60,20 @@ def fedavg(stacked_params, client_mask=None):
     client_mask weights the average so dead padding slots contribute
     nothing; the live mean is broadcast to every slot.  The masked mean
     is ``sum * (1/n_live)``, a multiply, as the reference computes it.
+    A [L, n] mask averages within each of L lanes (module doc).
     """
     if client_mask is None:
         def avg(leaf):
             return leaf.mean(dim=0, keepdim=True).expand_as(leaf)
     else:
-        inv_live = 1.0 / client_mask.sum()
+        dim = client_mask.dim() - 1
+        inv_live = 1.0 / client_mask.sum(dim=dim, keepdim=True)
 
         def avg(leaf):
-            cm = client_mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
-            term = leaf * cm
-            m = term.sum(dim=0, keepdim=True) * inv_live
-            return m.expand_as(leaf)
+            tail = (1,) * (leaf.dim() - 1)
+            term = by_lane(leaf, client_mask) * \
+                client_mask.reshape(client_mask.shape + tail)
+            m = term.sum(dim=dim, keepdim=True) * \
+                inv_live.reshape(inv_live.shape + tail)
+            return m.expand_as(term).reshape(leaf.shape)
     return tree_map(avg, stacked_params)

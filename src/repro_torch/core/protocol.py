@@ -15,6 +15,15 @@ Pieces, each named after its counterpart in the JAX package:
   make_h_all_fn        per-client activations at the exchange point
   make_predict_fn      per-client inference with the evaluation exchange
 
+Lane batches (``repro_torch.core.sweep``): the step, the activations
+and the predictions also train and run many federations at once, as
+lanes stacked on the client axis.  A [L, n] ``client_mask`` marks such
+a batch: the exchange sum, FedAvg and the loss means reduce within
+each lane (``core.exchange``), labels are [L, B], the masked lane's
+input is the [B, L, F] lane-stacked batch, and the sweep passes its own
+first layer (``first_layer_fn``).  Everything else is per client and
+runs unchanged.
+
 First-layer lanes (``ProtocolConfig.first_layer``):
 
   masked   the paper-literal reference: the [n, B, F] zero-padded batch
@@ -64,7 +73,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import partition as PT
-from repro_torch.core.exchange import fedavg, hidden_output_exchange
+from repro_torch.core.exchange import (by_lane, fedavg,
+                                       hidden_output_exchange)
 from repro_torch.data import registry as DR
 from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
 from repro_torch.metrics import accuracy, f1_score
@@ -116,6 +126,14 @@ UNPORTED_DEFAULTS = {"schedule": "sync", "fault": "none",
                      "transform": "none", "obs": "none"}
 ENGINES = ("scan", "python")
 MODES = ("devertifl", "non_federated", "verticomb")
+
+
+def deferred(what, item, name) -> NotImplementedError:
+    """The error an entry point raises for what ROADMAP.md's Queue 1
+    item ``item`` (``name``) will port."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
+        f"Queue 1 item {item} ({name})")
 
 
 def refuse_unported(cfg) -> None:
@@ -231,20 +249,38 @@ def rest(model, exchange_at, p, h):
 
 
 def _ce(logits, labels):
-    """[n, B, C] logits, [B] labels -> [n] per-client mean CE."""
+    """[n, B, C] logits, [B] labels -> [n] per-client mean CE.  A lane
+    batch's labels are [L, B], each lane's for its n / L clients."""
+    if labels.dim() == 2:
+        labels = labels.repeat_interleave(
+            logits.shape[0] // labels.shape[0], dim=0)
     logp = torch.log_softmax(logits, dim=-1)
     idx = labels.expand(logits.shape[0], -1).unsqueeze(-1)
     return -logp.gather(-1, idx).squeeze(-1).mean(dim=-1)
 
 
 def _masked_mean(values, client_mask):
-    """Mean over live clients: sum(v * mask) * (1/n_live)."""
-    return (values * client_mask).sum() * (1.0 / client_mask.sum())
+    """Mean over live clients: sum(v * mask) * (1/n_live); [L] for a
+    lane batch's [L, n] mask, 0-d for one federation."""
+    return (by_lane(values, client_mask) * client_mask).sum(-1) * \
+        (1.0 / client_mask.sum(-1))
 
 
 def _masked_hidden_sum(h_all, client_mask):
-    """[n, B, H] -> [B, H] exchange sum excluding dead clients."""
-    return (h_all * client_mask[:, None, None]).sum(dim=0)
+    """[n, B, H] -> [B, H] exchange sum excluding dead clients ([L, B,
+    H], a sum a lane, for a lane batch)."""
+    return (by_lane(h_all, client_mask) * client_mask[..., None, None]
+            ).sum(dim=client_mask.dim() - 1)
+
+
+def _to_clients(t, client_mask):
+    """A lane sum ([L, B, H]) on every client of its lane ([L*n, B, H]);
+    one federation's [B, H] broadcasts as it is."""
+    if client_mask.dim() == 1:
+        return t
+    n_lanes, n = client_mask.shape
+    return t.unsqueeze(1).expand(n_lanes, n, *t.shape[1:]).reshape(
+        n_lanes * n, *t.shape[1:])
 
 
 def make_first_layer_fn(model, pcfg, layout, device):
@@ -291,16 +327,33 @@ def _leaf_copies(params):
 
 
 def _grads(total, ps):
-    return tree_unflatten(ps, torch.autograd.grad(total, tree_leaves(ps)))
+    """Gradients of ``total``, or of the sum of a lane batch's [L]
+    losses: lanes share no parameter, so each lane gets its own."""
+    return tree_unflatten(ps, torch.autograd.grad(total.sum(),
+                                                  tree_leaves(ps)))
 
 
-def make_step_fn(model, opt, pcfg, layout, device):
+def _masked_input(xb, lay):
+    """The masked lane's [n, B, F] zero-padded batch; for a lane batch
+    ([L, max_c] client_mask) from the [B, L, F] lane-stacked batch, each
+    lane's rows repeated on its max_c slots: [L*max_c, B, F]."""
+    if lay.client_mask.dim() == 1:
+        return xb[None] * lay.masks[:, None, :]
+    n = lay.client_mask.shape[1]
+    return xb.transpose(0, 1).repeat_interleave(n, dim=0) * \
+        lay.masks[:, None, :]
+
+
+def make_step_fn(model, opt, pcfg, layout, device, first_layer_fn=None):
     """One all-clients optimizer step for pcfg.mode.
 
     step(params, opt_state, lay, xb, yb, step_idx) -> (params,
     opt_state, mean_loss): params are updated in place (and returned),
     step_idx is a python int, xb is in canonical column order and
-    mean_loss is the live clients' mean, a 0-d tensor on the device.
+    mean_loss is the live clients' mean, a 0-d tensor on the device
+    ([L] for a lane batch).  ``first_layer_fn(params, xb, lay)``
+    replaces the first layer (a lane batch passes it; ``layout`` is then
+    unused).
     """
     fl = resolve_first_layer(pcfg, device)
     k = pcfg.exchange_at
@@ -312,7 +365,9 @@ def make_step_fn(model, opt, pcfg, layout, device):
         # gradient stack (dead clients' included, as in the reference)
         def devertifl_loss(ps, lay, xm, yb):
             h_all = client_hidden(model, k, ps, xm)
-            h_sum = _masked_hidden_sum(h_all.detach(), lay.client_mask)
+            h_sum = _to_clients(_masked_hidden_sum(h_all.detach(),
+                                                   lay.client_mask),
+                                lay.client_mask)
             # value == full exchanged sum; grad flows only through h_i
             h = h_all + h_sum - h_all.detach()
             losses = _ce(rest(model, k, ps, h), yb)
@@ -325,16 +380,16 @@ def make_step_fn(model, opt, pcfg, layout, device):
 
         def verticomb_loss(ps, lay, xm, yb):
             h_all = client_hidden(model, k, ps, xm)
-            h_sum = _masked_hidden_sum(h_all, lay.client_mask)
+            h_sum = _to_clients(_masked_hidden_sum(h_all, lay.client_mask),
+                                lay.client_mask)
             logits = rest(model, k, ps, h_sum.expand_as(h_all))
             loss = _masked_mean(_ce(logits, yb), lay.client_mask)
             return loss, None
 
         loss_fn = {"devertifl": devertifl_loss, "non_federated": nonfed_loss,
                    "verticomb": verticomb_loss}[pcfg.mode]
-
         def step(params, opt_state, lay, xb, yb, step_idx):
-            xm = xb[None] * lay.masks[:, None, :]
+            xm = _masked_input(xb, lay)
             ps = _leaf_copies(params)
             total, losses = loss_fn(ps, lay, xm, yb)
             params, opt_state, _ = opt.update(_grads(total, ps), opt_state,
@@ -347,7 +402,8 @@ def make_step_fn(model, opt, pcfg, layout, device):
     # slice/kernel: grads of the masked sum of per-client losses (peer
     # terms are detached, so loss_i depends on params[i] alone, and the
     # mask drops dead clients' grads)
-    first = make_first_layer_fn(model, pcfg, layout, device)
+    first = first_layer_fn or make_first_layer_fn(model, pcfg, layout,
+                                                  device)
 
     def losses_fn(ps, lay, xb, yb, differentiable=None):
         h_all = client_hidden_from(model, k, ps, first(ps, xb, lay))
@@ -366,7 +422,8 @@ def make_step_fn(model, opt, pcfg, layout, device):
         else:
             exchange = False if pcfg.mode == "devertifl" else None
             losses = losses_fn(ps, lay, xb, yb, exchange)
-            grads = _grads((losses * lay.client_mask).sum(), ps)
+            grads = _grads(by_lane(losses, lay.client_mask)
+                           * lay.client_mask, ps)
             loss = _masked_mean(losses, lay.client_mask)
         params, opt_state, _ = opt.update(grads, opt_state, params,
                                           step_idx)
@@ -464,28 +521,30 @@ def make_round_fn(model, opt, pcfg, n_train, layout, device,
     return round_fn
 
 
-def make_h_all_fn(model, pcfg, layout, device):
+def make_h_all_fn(model, pcfg, layout, device, first_layer_fn=None):
     """h_all(params, x, lay) -> [n_clients, B, W] per-client activations
     at the exchange point from a canonical-order [B, F] batch.  Every
-    output row depends only on its own input row."""
+    output row depends only on its own input row.  ``first_layer_fn``
+    is make_step_fn's."""
     fl = resolve_first_layer(pcfg, device)
     k = pcfg.exchange_at
     if fl == "masked":
         def h_all_fn(params, x, lay):
-            return client_hidden(model, k, params,
-                                 x[None] * lay.masks[:, None, :])
+            return client_hidden(model, k, params, _masked_input(x, lay))
         return h_all_fn
-    first = make_first_layer_fn(model, pcfg, layout, device)
+    first = first_layer_fn or make_first_layer_fn(model, pcfg, layout,
+                                                  device)
 
     def h_all_fn(params, x, lay):
         return client_hidden_from(model, k, params, first(params, x, lay))
     return h_all_fn
 
 
-def make_predict_fn(model, pcfg, layout, device):
+def make_predict_fn(model, pcfg, layout, device, first_layer_fn=None):
     """predict(params, x, lay) -> [n_clients, B] class predictions from
-    canonical-order x.  Dead padded clients' rows are garbage."""
-    h_all_fn = make_h_all_fn(model, pcfg, layout, device)
+    canonical-order x.  Dead padded clients' rows are garbage.
+    ``first_layer_fn`` is make_step_fn's."""
+    h_all_fn = make_h_all_fn(model, pcfg, layout, device, first_layer_fn)
 
     @torch.no_grad()
     def predict(params, x, lay):

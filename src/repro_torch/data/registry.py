@@ -90,6 +90,18 @@ def make_dataset(name, n=None, seed=None, test_frac=0.2):
     return get_dataset(name).make(n, seed=seed, test_frac=test_frac)
 
 
+def make_dataset_stack(name, seeds, n=None, test_frac=0.2):
+    """Per-seed draws stacked on a leading seed axis (rectangular), for
+    seed-stacked sweeps -- the registry-routed twin of
+    ``synthetic.make_dataset_stack`` (the same stacking helper): seed
+    s's slice is ``make_dataset(name, n, seed=s)``."""
+    entry = get_dataset(name)
+
+    def mk(n, seed=None, test_frac=0.2):
+        return entry.make(n, seed=seed, test_frac=test_frac)
+    return SD.stack_splits(mk, seeds, n=n, test_frac=test_frac)
+
+
 register_dataset("mnist", make=partial(SD.make_dataset, "mnist"),
                  n_classes=10, arch="paper-mlp-mnist",
                  partition="image_rows")

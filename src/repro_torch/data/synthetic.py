@@ -98,6 +98,13 @@ def split_train_test(x, y, test_frac=0.2):
     return x[n_test:], y[n_test:], x[:n_test], y[:n_test]
 
 
+def stack_splits(make_fn, seeds, n=None, test_frac=0.2):
+    """Per-seed ``make_fn(n, seed=s, test_frac=...)`` 4-tuples stacked
+    on a leading seed axis (rectangular), for seed-stacked sweeps."""
+    splits = [make_fn(n, seed=s, test_frac=test_frac) for s in seeds]
+    return tuple(np.stack(parts) for parts in zip(*splits))
+
+
 def make_dataset(name, n=None, seed=None, test_frac=0.2):
     """Returns (x_train, y_train, x_test, y_test)."""
     kw = {}
@@ -106,3 +113,12 @@ def make_dataset(name, n=None, seed=None, test_frac=0.2):
     if seed is not None:
         kw["seed"] = seed
     return split_train_test(*_GENS[name](**kw), test_frac=test_frac)
+
+
+def make_dataset_stack(name, seeds, n=None, test_frac=0.2):
+    """Per-seed dataset draws stacked on a leading seed axis:
+    (x_train, y_train, x_test, y_test), each [n_seeds, ...].  Seed s's
+    slice is ``make_dataset(name, n, seed=s)``."""
+    def mk(n, seed=None, test_frac=0.2):
+        return make_dataset(name, n, seed=seed, test_frac=test_frac)
+    return stack_splits(mk, seeds, n=n, test_frac=test_frac)

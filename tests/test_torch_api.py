@@ -19,8 +19,7 @@ from repro_torch.api import (RESULT_SCHEMA_VERSION, ExperimentSpec,
                              RunResult, build, dataset_names,
                              first_layer_names, mode_names,
                              register_dataset, register_first_layer,
-                             register_mode, run_grid, spec_grid,
-                             sweep_config_for_specs)
+                             register_mode)
 from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
                                        auto_first_layer,
                                        make_first_layer_fn,
@@ -481,12 +480,6 @@ def test_train_federation_shim_warns_and_matches_train():
 
 def test_deferred_entry_points_name_their_queue_item():
     spec = ExperimentSpec(**TINY)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _cpu(spec.replace(seeds=(0, 1))).run()
-    for fn, args in ((spec_grid, ()), (run_grid, ([spec],)),
-                     (sweep_config_for_specs, ([spec],))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            fn(*args)
     sess = _cpu(spec)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         sess.server()

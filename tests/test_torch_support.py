@@ -50,6 +50,7 @@ _REFERENCE_MODULES = {
     "api": "repro.api",
     "baselines": "repro.core.baselines",
     "checkpoint": "repro.checkpoint",
+    "sweep": "repro.core.sweep",
 }
 
 
