@@ -119,8 +119,35 @@ Phases, each printing one JSON line:
               the grid's cell 5 against a multi-seed Session (F1 within
               0.002, final loss within LANE_RTOL); lane-steps/s,
               cells/s, busy share, peak GB, F1 per cell
- 11. profile  where a training step's time goes (torch.profiler)
- 12. serve    serves qwen2-7b at full width and depth (28 layers,
+ 11. adversity
+              the round engine's schedule, fault and wire layers at the
+              train phase's configuration (mnist, 5 clients, 70,000
+              samples, kernel lane): one round of each of sync,
+              stale_k:0, partial:1.0, stale_k:2, partial:0.5,
+              partial:0.5:det, double_buffer, crash:0.2:2,
+              straggle:0.3:2, corrupt:0.05 (nan and scale), topk:1.0,
+              topk:0.5, int8, dp:0.1 and the combination stale_k:2 +
+              crash:0.2+corrupt:0.05 + topk:0.5+int8+dp:0.1 through
+              DeVertiFL.train(), each rerun bitwise and launching
+              vfl_matmul once a step and once an evaluation (877, the
+              count set to 0 just before, read just after); stale_k:0,
+              partial:1.0 and topk:1.0 bitwise sync; under corruption
+              every loss finite and every corrupted client-round
+              quarantined, which a planted leaky screen (a NaN slice let
+              through) must fail; wire bytes against wire_bytes for the
+              round's live senders; the combination's busy share and
+              kernels a step (torch.profiler), and two rounds of it
+              through build(ExperimentSpec(...)).run(); a Session round
+              poisoned on its first attempt (a registered test_poison
+              plan): one watchdog trip, one reseeded retry, finite,
+              rerun bitwise; a schedule grid (sync, stale_k:1,
+              stale_k:2, partial:0.5 x seeds 0, 1, 2: 12 lanes, one
+              launch a lane-batched step, lanes (sync, 0), (stale_k:2,
+              1), (partial:0.5, 2) bitwise their standalone runs) and a
+              fault x transform grid the same way; steps/s of each
+              variant beside sync's, lane-steps/s
+ 12. profile  where a training step's time goes (torch.profiler)
+ 13. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -130,7 +157,7 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
- 13. serve_moe
+ 14. serve_moe
               after qwen2-7b's memory is released, serves
               deepseek-moe-16b at full width and depth (28 layers, 64
               routed experts top-6 + 2 shared, random bf16 weights drawn
@@ -145,7 +172,7 @@ Phases, each printing one JSON line:
               that check; the logits against a prefill routed by the
               plain version; then one decode step and one prefill
               under torch.profiler
- 14. serve_rwkv
+ 15. serve_rwkv
               after deepseek-moe-16b's memory is released, serves
               rwkv6-1.6b at full width and depth (24 layers, random bf16
               weights drawn on the card) with the same 12 requests'
@@ -160,7 +187,7 @@ Phases, each printing one JSON line:
               prefill(prompt[:n + 1]), on the logits and every layer's
               state, which a decode from a zeroed state must fail; then
               one decode step and one prefill under torch.profiler
- 15. serve_hybrid
+ 16. serve_hybrid
               after rwkv6-1.6b's memory is released, serves
               jamba-v0.1-52b at full width and cut depth (16 of its 32
               layers: 103.15 GB of bf16 weights do not fit the card's
@@ -2327,6 +2354,370 @@ def _profile_rows(prof, wall_ms, steps) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the round engine's schedule, fault and wire layers at the training
+# phase's configuration: one round a variant, each rerun bitwise
+ADV_COMBO = {"schedule": "stale_k:2", "fault": "crash:0.2+corrupt:0.05",
+             "transform": "topk:0.5+int8+dp:0.1"}
+ADV_VARIANTS = (
+    [{"schedule": s} for s in ("sync", "stale_k:0", "partial:1.0",
+                               "stale_k:2", "partial:0.5",
+                               "partial:0.5:det", "double_buffer")]
+    + [{"fault": f} for f in ("crash:0.2:2", "straggle:0.3:2",
+                              "corrupt:0.05", "corrupt:0.05:scale")]
+    + [{"transform": t} for t in ("topk:1.0", "topk:0.5", "int8",
+                                  "dp:0.1")]
+    + [ADV_COMBO])
+# degenerate members of their families: bitwise the sync variant
+ADV_BITWISE_SYNC = ("stale_k:0", "partial:1.0", "topk:1.0")
+ADV_SCHEDULES = ("sync", "stale_k:1", "stale_k:2", "partial:0.5")
+ADV_GRID_SEEDS = (0, 1, 2)
+ADV_LANES = (("sync", 0), ("stale_k:2", 1), ("partial:0.5", 2))
+ADV_FAULTS = ("none", "crash:0.2+corrupt:0.05")
+ADV_TRANSFORMS = ("none", "topk:0.5+int8+dp:0.1")
+# the test plan that NaN-poisons a round on a federation-wide coin
+# (tests/test_torch_faults.py's): heads on the canonical draw, tails on
+# the watchdog's first reseed
+ADV_POISON_TAG = 0x0BAD
+
+
+def _name(plan) -> str:
+    return "+".join(plan.values()) if plan else "sync"
+
+
+def _dev_sync() -> None:
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _PoisonImpl:
+    def __init__(self, inner, p):
+        self.inner, self.p = inner, p
+
+    def init_state(self, sched):
+        return {"inner": self.inner.init_state(sched),
+                "poison": torch.zeros((), device=self.inner.device)}
+
+    def round_start(self, state, lay, draws, round_idx):
+        inner, eff = self.inner.round_start(state["inner"], lay, draws,
+                                            round_idx)
+        coin = draws.coins(ADV_POISON_TAG, 0, self.p)[0]
+        return {"inner": inner, "poison": coin}, eff
+
+    def select(self, state, h_now):
+        h_ref, inner = self.inner.select(state["inner"], h_now)
+        h_ref = torch.where(state["poison"] > 0,
+                            torch.full_like(h_ref, float("nan")), h_ref)
+        return h_ref, {**state, "inner": inner}
+
+    def round_end(self, state):
+        return {**state, "inner": self.inner.round_end(state["inner"])}
+
+
+def _adv_run(pcfg, plan, rerun=True) -> dict:
+    """One round of ``pcfg`` under ``plan`` through ``DeVertiFL.train()``
+    with the vfl_matmul count set to 0 just before and read just after,
+    then (``rerun``) the same federation again, bitwise, its wall time
+    the variant's (warm)."""
+    from repro_torch.core.protocol import DeVertiFL
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    fed = DeVertiFL(pcfg.replace(rounds=1, **plan), device=DEVICE)
+    vfl_matmul_clients.launches = 0
+    out = fed.train()
+    launches = vfl_matmul_clients.launches
+    losses = torch.as_tensor(out["history"][0]["round_losses"])
+    steps = losses.numel()
+    run = {"fed": fed, "losses": losses, "final": out["final"],
+           "state": out["sched_state"], "steps": steps,
+           "launches": launches}
+    if not rerun:
+        return run
+    check(launches == steps + 2,
+          f"adversity {_name(plan)}: vfl_matmul launched {launches} times, "
+          f"expected {steps + 2} (a step each, two evaluations)")
+    _dev_sync()
+    t0 = time.perf_counter()
+    again = fed.train()
+    _dev_sync()
+    run["wall"] = time.perf_counter() - t0
+    check(torch.equal(losses, torch.as_tensor(
+        again["history"][0]["round_losses"])) and out["final"] == again["final"],
+        f"adversity {_name(plan)}: the rerun is not bitwise")
+    return run
+
+
+def _corrupt_reading(run) -> dict:
+    tel = {k: int(v) for k, v in
+           run["fed"].fault_telemetry(run["state"]).items()}
+    return {"finite": bool(torch.isfinite(run["losses"]).all()), **tel}
+
+
+def _corrupt_ok(r) -> bool:
+    """Under corruption: every loss finite, and every corrupted
+    client-round quarantined (at least one)."""
+    return r["finite"] and r["quarantined"] == r["corruptions"] > 0
+
+
+def _wire_reading(run, plan) -> dict:
+    """The round's bytes on the wire against ``wire_bytes``'s integers
+    for its live senders: the clients the round's crash coins leave up
+    (all of them without a crash plan)."""
+    from repro_torch.faults import FAULT_TAG, get_fault_plan
+    from repro_torch.wire import get_wire_plan, wire_bytes
+    fed, steps = run["fed"], run["steps"]
+    n = fed.pcfg.n_clients
+    crash = get_fault_plan(plan.get("fault", "none")).crash
+    down = 0 if crash is None else int(fed.draws().round(0).coins(
+        FAULT_TAG, 1, crash).sum())
+    wire = get_wire_plan(plan["transform"])
+    raw, enc = wire_bytes(n - down, fed.bs, fed.model.n_classes,
+                          topk_on=float(wire.topk is not None),
+                          topk_p=wire.topk_p, int8_on=float(wire.int8))
+    got = {k: int(v) for k, v in
+           fed.wire_telemetry(run["state"]).items()}
+    want = {"raw_bytes": int(raw) * steps, "encoded_bytes": int(enc) * steps}
+    check(got == want, f"adversity {_name(plan)}: wire bytes {got}, "
+          f"wire_bytes for {n - down} senders x {steps} steps: {want}")
+    return {"senders": n - down, **got}
+
+
+def _adv_profile(pcfg) -> dict:
+    """The combination's round at fewer samples under torch.profiler:
+    device busy share and kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.protocol import (DeVertiFL, round_generator,
+                                           train_generators)
+    fed = DeVertiFL(pcfg.replace(**ADV_COMBO), device=DEVICE)
+    params, opt_state = fed.start(fed.init_params(
+        train_generators(pcfg.seed)[0]))
+    idx = fed.perms(round_generator(pcfg.seed, 0))
+    draws = fed.draws().round(0)
+    fed.run_round(params, opt_state, 0, idx, fed.init_sched_state(), draws)
+    _dev_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed.run_round(params, opt_state, 0, idx, fed.init_sched_state(),
+                      draws)
+        _dev_sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _profile_rows(prof, wall_ms, idx.shape[0])
+    return {k: rows[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                 "device_busy_share", "kernels_per_step",
+                                 "by_kind")}
+
+
+def _adv_session(pcfg, first_round) -> dict:
+    """The combination for two rounds through
+    ``build(ExperimentSpec(...)).run()``: one vfl_matmul launch a step
+    and an evaluation, finite, its first round bitwise the DeVertiFL
+    variant's; then a Session round poisoned on its first attempt: one
+    watchdog trip, one reseeded retry, finite, rerun bitwise."""
+    from repro_torch.api import ExperimentSpec, build
+    from repro_torch.core.draws import CounterDraws
+    from repro_torch.faults import RetryPolicy, register_fault
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    spec = ExperimentSpec(dataset=pcfg.dataset, n_clients=pcfg.n_clients,
+                          n_samples=pcfg.n_samples, rounds=2, epochs=1,
+                          batch_size=pcfg.batch_size, **ADV_COMBO)
+    vfl_matmul_clients.launches = 0
+    rr = build(spec, device=DEVICE).run()
+    launches = vfl_matmul_clients.launches
+    steps = rr.telemetry.steps
+    losses = torch.cat([torch.as_tensor(h["round_losses"])
+                        for h in rr.history])
+    check(launches == steps + 3,
+          f"adversity Session: {launches} vfl_matmul launches, expected "
+          f"{steps + 3}")
+    check(bool(torch.isfinite(losses).all())
+          and torch.equal(losses[:first_round.numel()], first_round),
+          "adversity Session: round 1 is not the DeVertiFL variant's, "
+          "bitwise, or a loss is not finite")
+    check(set(rr.timings) >= {"fault", "wire"}, f"timings {rr.timings}")
+
+    register_fault("test_poison", lambda inner, n_clients, batch_size,
+                   width, args: _PoisonImpl(inner, float(args[0])),
+                   overwrite=True)
+
+    def coin(seed, attempt):
+        draws = CounterDraws(seed, pcfg.n_clients, "cpu")
+        return bool(draws.round(0, attempt).coins(ADV_POISON_TAG, 0, 0.5)[0])
+    seed = next(s for s in range(64) if coin(s, 0) and not coin(s, 1))
+    poison = spec.replace(rounds=1, seeds=(seed,), schedule="sync",
+                          transform="none", fault="test_poison:0.5")
+    runs = [build(poison, device=DEVICE).run(retry=RetryPolicy(max_retries=2))
+            for _ in range(2)]
+    fault = runs[0].timings["fault"]
+    poisoned = torch.as_tensor(runs[0].history[0]["round_losses"])
+    check(fault == {"watchdog_trips": 1, "retries": 1},
+          f"adversity watchdog: timings['fault'] = {fault}")
+    check(bool(torch.isfinite(poisoned).all())
+          and math.isfinite(runs[0].metrics["f1"]),
+          "adversity watchdog: the retried round is not finite")
+    check(_same_run(runs[0], runs[1]),
+          "adversity watchdog: the rerun is not bitwise")
+    return {"spec_hash": rr.spec_hash, "steps": steps,
+            "steps_per_s": rr.telemetry.steps_per_sec,
+            "vfl_matmul_launches": launches, "timings_fault":
+            rr.timings["fault"], "timings_wire": rr.timings["wire"],
+            "final_f1": rr.metrics["f1"],
+            "watchdog": {"seed": seed, "fault": fault,
+                         "f1": runs[0].metrics["f1"],
+                         "rerun_bitwise": True}}
+
+
+def _adv_lanes(specs, standalone) -> dict:
+    """One round of ``specs``' lane batch with the vfl_matmul count set
+    to 0 just before and read just after (one launch a lane-batched
+    step); the lanes ``standalone`` names ({lane index: plan}) against
+    their standalone DeVertiFL rounds, bitwise."""
+    from repro_torch.api.session import sweep_config_for_specs
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
+                                           round_generator,
+                                           train_generators)
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    ds, mode, scfg = sweep_config_for_specs(specs)
+    lb = SW.build_lane_batch(ds, mode, scfg, device=DEVICE)
+    idx, draws = lb.round_indices(0), lb.round_draws(0)
+    vfl_matmul_clients.launches = 0
+    _dev_sync()
+    t0 = time.perf_counter()
+    _, _, _, _, losses = lb.round_fn(lb.params, lb.opt_state, 0, idx,
+                                     lb.xtr, lb.ytr, lb.lay,
+                                     lb.sched_state, draws)
+    _dev_sync()
+    wall = time.perf_counter() - t0
+    launches = vfl_matmul_clients.launches
+    check(launches == lb.n_batches,
+          f"adversity grid: {launches} vfl_matmul launches for "
+          f"{lb.n_batches} lane-batched steps")
+    losses = losses.cpu()
+    check(bool(torch.isfinite(losses).all()), "adversity grid: a loss is "
+          "not finite")
+    out = {}
+    for li, plan in standalone.items():
+        nc, s = lb.lanes[li]
+        fed = DeVertiFL(ProtocolConfig(
+            dataset=ds, n_clients=nc, seed=s, n_samples=scfg.n_samples,
+            rounds=1, epochs=1, **plan), device=DEVICE)
+        params, opt_state = fed.start(fed.init_params(
+            train_generators(s)[0]))
+        _, _, _, _, solo = fed.run_round(
+            params, opt_state, 0, fed.perms(round_generator(s, 0)),
+            fed.init_sched_state(), fed.draws().round(0))
+        check(torch.equal(losses[li], solo.cpu()),
+              f"adversity grid: lane {li} ({_name(plan)}, seed {s}) is not "
+              "its standalone run, bitwise")
+        out[f"{_name(plan)}/{s}"] = "bitwise"
+    return {"lanes": lb.n_lanes, "steps": lb.n_batches, "wall_s": wall,
+            "lane_steps_per_s": lb.n_lanes * lb.n_batches / wall,
+            "vfl_matmul_launches": launches, "vs_standalone": out}
+
+
+def phase_adversity(kernel_row, pcfg) -> None:
+    """The round engine's schedule, fault and wire layers at the training
+    phase's configuration (mnist 784 -> 3x10 -> 10, 5 clients, 70,000
+    samples, kernel lane): one round of each variant through
+    ``DeVertiFL.train()``, each rerun bitwise and launching vfl_matmul
+    once a step and once an evaluation; the degenerate members bitwise
+    sync; the screen under corruption, with a planted fault (a screen
+    that lets a NaN slice through) failing that check; wire bytes
+    against ``wire_bytes``; the combination's device profile; the
+    combination through the Session and the watchdog's rollback; a
+    schedule grid and a fault x transform grid, lanes bitwise their
+    standalone runs."""
+    import repro_torch.faults.engine as FE
+    from repro_torch.api import run_grid, spec_grid
+    t_phase = time.perf_counter()
+    runs, rows = {}, {}
+    for plan in ADV_VARIANTS:
+        name = _name(plan)
+        run = runs[name] = _adv_run(pcfg, plan)
+        check(bool(torch.isfinite(run["losses"]).all()),
+              f"adversity {name}: a loss is not finite")
+        rows[name] = {"steps_per_s": run["steps"] / run["wall"],
+                      "vfl_matmul_launches": run["launches"],
+                      "final_f1": run["final"]["f1"],
+                      "last_loss": float(run["losses"][-1])}
+        tel = run["fed"].fault_telemetry(run["state"])
+        if tel is not None:
+            rows[name]["fault"] = {k: int(v) for k, v in tel.items()}
+        if "transform" in plan:
+            rows[name]["wire"] = _wire_reading(run, plan)
+    sync = runs["sync"]
+    for name in ADV_BITWISE_SYNC:
+        check(torch.equal(runs[name]["losses"], sync["losses"])
+              and runs[name]["final"] == sync["final"],
+              f"adversity {name}: not bitwise the sync run")
+    for name in ("corrupt:0.05", "corrupt:0.05:scale", _name(ADV_COMBO)):
+        reading = _corrupt_reading(runs[name])
+        check(_corrupt_ok(reading), f"adversity {name}: {reading}")
+    # the planted fault: a screen that lets a NaN slice through
+    screen = FE.screen_exchange
+
+    def leaky(payload, last_good, max_abs):
+        return payload, torch.zeros(payload.shape[0], dtype=torch.bool,
+                                    device=payload.device)
+    FE.screen_exchange = leaky
+    try:
+        planted = _corrupt_reading(_adv_run(pcfg, {"fault": "corrupt:0.05"},
+                                            rerun=False))
+    finally:
+        FE.screen_exchange = screen
+    check(not _corrupt_ok(planted),
+          f"adversity: a leaky screen passed the corruption check {planted}")
+    # sync once more after the others: the host clock's drift over the
+    # variants, beside which their ratios to sync are read
+    sync_after = _adv_run(pcfg, {})
+    check(torch.equal(sync_after["losses"], sync["losses"]),
+          "adversity: sync after the variants is not the sync run, bitwise")
+    rows["sync"]["steps_per_s_after"] = sync_after["steps"] / \
+        sync_after["wall"]
+    for name, row in rows.items():
+        row["vs_sync"] = row["steps_per_s"] / rows["sync"]["steps_per_s"]
+    profile = _adv_profile(pcfg.replace(n_samples=4000))
+    session = _adv_session(pcfg, runs[_name(ADV_COMBO)]["losses"])
+
+    common = dict(datasets=(pcfg.dataset,), modes=("devertifl",),
+                  client_counts=(pcfg.n_clients,), rounds=1, epochs=1,
+                  n_samples=pcfg.n_samples, batch_size=pcfg.batch_size)
+    sched_specs = spec_grid(seeds=ADV_GRID_SEEDS, schedules=ADV_SCHEDULES,
+                            **common)
+    n_seeds = len(ADV_GRID_SEEDS)
+    sched_grid = _adv_lanes(sched_specs, {
+        ADV_SCHEDULES.index(sc) * n_seeds + ADV_GRID_SEEDS.index(s):
+        {"schedule": sc} for sc, s in ADV_LANES})
+    grid = run_grid(sched_specs, device=DEVICE)
+    check(len(grid["cells"]) == len(ADV_SCHEDULES)
+          and all(math.isfinite(c["f1_mean"]) for c in grid["cells"].values()),
+          f"adversity: the schedule grid's cells {sorted(grid['cells'])}")
+    ft_specs = spec_grid(seeds=(0,), faults=ADV_FAULTS,
+                         transforms=ADV_TRANSFORMS, **common)
+    ft_grid = _adv_lanes(ft_specs, {3: {"fault": ADV_FAULTS[1],
+                                        "transform": ADV_TRANSFORMS[1]}})
+    kernel_row["adversity"] = {name: row["vfl_matmul_launches"]
+                               for name, row in rows.items()}
+    kernel_row["adversity"]["schedule_grid"] = \
+        sched_grid["vfl_matmul_launches"]
+    kernel_row["adversity"]["session_2_rounds"] = \
+        session["vfl_matmul_launches"]
+    emit({"phase": "adversity", "dataset": pcfg.dataset,
+          "n_clients": pcfg.n_clients, "n_samples": pcfg.n_samples,
+          "first_layer": sync["fed"].first_layer,
+          "variants": rows, "bitwise_sync": list(ADV_BITWISE_SYNC),
+          "corrupt": {n: _corrupt_reading(runs[n]) for n in
+                      ("corrupt:0.05", "corrupt:0.05:scale",
+                       _name(ADV_COMBO))},
+          "planted_leaky_screen": planted,
+          "combination_profile": profile, "session": session,
+          "schedule_grid": {**sched_grid,
+                            "cells": {k: v["f1_mean"]
+                                      for k, v in grid["cells"].items()}},
+          "fault_transform_grid": ft_grid,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
 def _serve(model, params, requests, max_batch, cache_len):
     """Drain ``requests`` through a fresh ServingEngine, driving the
     admit / step loop of ``ServingEngine.run`` here so that each call is
@@ -2899,6 +3290,7 @@ def main() -> None:
     train_out = phase_train(kernel_row, pcfg)
     phase_api(train_out, pcfg)
     phase_sweep(kernel_row, train_out["steps_per_s"])
+    phase_adversity(kernel_row, pcfg)
     phase_profile(pcfg.replace(n_samples=4000))
     phase_serve(attn_row)
     phase_serve_moe(router_row, attn_row)

@@ -21,8 +21,10 @@ the registries: :func:`register_dataset`, :func:`register_mode`,
     grid = run_grid(spec_grid(datasets=("titanic",), modes=("devertifl",),
                               client_counts=(2, 3), seeds=(0, 1)))
 
-and takes ``device="cpu"`` as ``build`` does.  The schedule and serving
-names wait for ROADMAP.md, Queue 1 items 4 and 5.
+and takes ``device="cpu"`` as ``build`` does.  A spec's ``schedule``,
+``fault`` and ``transform`` run the round engine's layers
+(``repro_torch.schedule``, ``.faults``, ``.wire``); ``obs`` and the
+serving names wait for ROADMAP.md, Queue 1 items 4d and 5.
 """
 from repro_torch.api.spec import ExperimentSpec, HASH_EXCLUDE  # noqa: F401
 from repro_torch.api.modes import (  # noqa: F401
@@ -35,6 +37,9 @@ from repro_torch.api.session import (  # noqa: F401
 from repro_torch.core.protocol import register_first_layer  # noqa: F401
 from repro_torch.data.registry import (  # noqa: F401
     DatasetEntry, dataset_names, get_dataset, register_dataset,
+)
+from repro_torch.schedule import (  # noqa: F401
+    Schedule, get_schedule, register_schedule, schedule_names,
 )
 
 

@@ -30,9 +30,16 @@ phase on the card):
     (``core.sweep.run_padded_cells``), with the reference's validation
     errors, keys and per-cell ``spec_hash``.
 
-Still waiting: ``server``/``serve`` (ROADMAP.md, Queue 1 item 5), a
-``RetryPolicy`` and the non-default schedule/fault/transform/obs axes
-(item 4).
+A spec's schedule, fault plan and transform run through the round
+engine's layers (``core.protocol.resolve_engine``); their state rides
+the checkpoints under the reference's ``sched/...`` keys, and the
+stream stamp (``_stream_stamp``) refuses a checkpoint of another
+stream.  With a fault plan, ``run(retry="auto")`` arms the divergence
+watchdog (``repro_torch.faults.RetryPolicy``): a round whose losses
+diverge is rolled back and retried from a reseeded stream.
+
+Still waiting: ``server``/``serve`` (ROADMAP.md, Queue 1 item 5) and
+``obs`` levels other than "none" (item 4d).
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from repro_torch.core.baselines import SplitNN, SplitNNConfig
 from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig, deferred,
                                        resolve_device, round_generator,
                                        train_generators)
+from repro_torch.faults import DivergenceError, RetryPolicy, diverged
 from repro_torch.obs import NullTracer, Telemetry
 from repro_torch.tree import tree_map
 
@@ -72,10 +80,43 @@ def _hash_array(hex_hash: str) -> np.ndarray:
     return np.frombuffer(bytes.fromhex(hex_hash), np.uint8)
 
 
-# the schedule(+fault)(+wire)(+obs) identity the reference stamps into
-# checkpoints and resume() verifies; the port runs only the defaults,
-# whose stamp is the hash of "schedule:sync"
-_STREAM_STAMP = hashlib.sha256(b"schedule:sync").hexdigest()[:16]
+def _copy_state(state):
+    """A deep copy of a (nested) state: tensors cloned, numpy arrays
+    copied.  Training updates the parameters in place, so the
+    watchdog's rollback snapshot must not alias them."""
+    if isinstance(state, dict):
+        return {k: _copy_state(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_copy_state(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, np.ndarray):
+        return state.copy()
+    return state
+
+
+def _schedule_hash(schedule: str) -> str:
+    """Process-stable 16-hex-char id of a canonical schedule spec
+    string -- the checkpoint stamp resume() verifies."""
+    return hashlib.sha256(
+        ("schedule:" + schedule).encode()).hexdigest()[:16]
+
+
+def _stream_stamp(spec) -> str:
+    """The schedule(+fault)(+wire)(+obs) identity stamped into
+    checkpoints, the reference's.  At ``fault="none"``,
+    ``transform="none"`` and ``obs="none"`` it is the schedule stamp; a
+    non-none plan, transform or obs level extends the stamped string,
+    so a checkpoint written under one stream never continues under
+    another (its crash countdowns, straggler rings and byte counters
+    belong to its own stream)."""
+    ident = spec.schedule if spec.fault == "none" else \
+        f"{spec.schedule}|fault={spec.fault}"
+    if spec.transform != "none":
+        ident = f"{ident}|wire={spec.transform}"
+    if spec.obs != "none":
+        ident = f"{ident}|obs={spec.obs}"
+    return _schedule_hash(ident)
 
 
 @lru_cache(maxsize=1)
@@ -154,26 +195,21 @@ def _protocol_config(spec: ExperimentSpec, internal: str) -> ProtocolConfig:
         max_clients=spec.max_clients)
 
 
-def _sweep_config(spec: ExperimentSpec, client_counts) -> SW.SweepConfig:
-    """The SweepConfig of ``spec``'s cells at ``client_counts``.  A
-    grid's schedule, fault and transform axes are the spec's own: the
-    port constructs no spec with another (Queue 1 item 4)."""
+def _sweep_config(spec: ExperimentSpec, client_counts, schedules=None,
+                  faults=None, transforms=None) -> SW.SweepConfig:
+    """The SweepConfig of ``spec``'s cells at ``client_counts`` and the
+    given schedule, fault and transform axes (default: the spec's
+    own)."""
     return SW.SweepConfig(
         client_counts=tuple(client_counts), seeds=spec.seeds,
         rounds=spec.rounds, epochs=spec.epochs,
         batch_size=spec.batch_size, lr=spec.lr,
         exchange_at=spec.exchange_at, fedavg=spec.fedavg,
         n_samples=spec.n_samples, first_layer=spec.first_layer,
-        schedules=(spec.schedule,), faults=(spec.fault,),
-        transforms=(spec.transform,), obs=(spec.obs,))
-
-
-def _check_retry(retry) -> None:
-    """"auto" resolves to no policy (``fault`` is "none"); None/False
-    disable it; a RetryPolicy waits for its module."""
-    if retry not in ("auto", None, False):
-        raise deferred("retry= with a RetryPolicy", 4,
-                       "schedule/faults/wire/obs")
+        schedules=tuple(schedules or (spec.schedule,)),
+        faults=tuple(faults or (spec.fault,)),
+        transforms=tuple(transforms or (spec.transform,)),
+        obs=(spec.obs,))
 
 
 class Session:
@@ -230,10 +266,22 @@ class Session:
         """Train from scratch.  ``key`` is an int seed that overrides
         the spec's (single-seed federated sessions only); it is refused
         with checkpointing, since resume() would continue on the spec
-        seed's stream.  ``retry``: "auto" (no policy while ``fault`` is
-        "none"), None or False."""
+        seed's stream.
+
+        ``retry`` is the divergence-watchdog policy
+        (``repro_torch.faults``): "auto" arms a default
+        :class:`RetryPolicy` when the spec carries a fault plan and
+        nothing otherwise; pass a RetryPolicy to arm it, or None/False
+        to disable.  On a trip the round is rolled back to the last good
+        state and retried from a reseeded stream; trip and retry counts
+        land in ``RunResult.timings["fault"]``.  Single-seed federated
+        sessions only."""
         spec = self.spec
-        _check_retry(retry)
+        if retry not in ("auto", None, False) and \
+                (self.mode.kind != "federated" or len(spec.seeds) > 1):
+            raise ValueError(
+                "retry= applies to single-seed federated sessions: the "
+                "divergence watchdog drives the per-round host loop")
         if key is not None and (self.mode.kind != "federated"
                                 or len(spec.seeds) > 1):
             raise ValueError(
@@ -254,7 +302,7 @@ class Session:
             return self._run_splitnn()
         if len(spec.seeds) > 1:
             return self._run_cell()
-        return self._run_federated(key=key)
+        return self._run_federated(key=key, retry=retry)
 
     def resume(self, retry="auto") -> RunResult:
         """Continue from the newest INTACT checkpoint in
@@ -263,7 +311,6 @@ class Session:
         Rounds after the checkpoint are bit for bit the uninterrupted
         run's."""
         spec = self.spec
-        _check_retry(retry)
         if not spec.checkpoint_dir:
             raise ValueError("resume() needs spec.checkpoint_dir")
         if self.mode.kind != "federated" or len(spec.seeds) > 1:
@@ -271,9 +318,9 @@ class Session:
                              "sessions")
         steps = checkpoint_steps(spec.checkpoint_dir, name=_CKPT_NAME)
         if not steps:
-            return self.run()
+            return self.run(retry=retry)
         fed = self.federation
-        want_sched = _hash_array(_STREAM_STAMP)
+        want_sched = _hash_array(_stream_stamp(spec))
         params_like = fed.model.params()
         like_base = {"params": params_like,
                      "opt_state": fed.opt.init(params_like),
@@ -296,8 +343,24 @@ class Session:
                 # carries other scan state
                 got_sched = load_entry(spec.checkpoint_dir, cand,
                                        "schedule_hash", name=_CKPT_NAME)
-                if got_sched is not None and \
-                        not np.array_equal(got_sched, want_sched):
+                if got_sched is None:
+                    if spec.schedule != "sync" or \
+                            spec.fault != "none" or \
+                            spec.transform != "none" or \
+                            spec.obs != "none":
+                        raise ValueError(
+                            f"checkpoint in {spec.checkpoint_dir!r} "
+                            "carries no schedule stamp (written by a "
+                            "pre-schedule writer, i.e. under "
+                            "schedule='sync', fault='none', "
+                            "transform='none', obs='none'); it cannot "
+                            f"resume under schedule={spec.schedule!r} "
+                            f"/ fault={spec.fault!r} / "
+                            f"transform={spec.transform!r} / "
+                            f"obs={spec.obs!r} -- the saved state has "
+                            "no schedule, fault, wire or obs buffers "
+                            "to restore")
+                elif not np.array_equal(got_sched, want_sched):
                     raise ValueError(
                         f"checkpoint in {spec.checkpoint_dir!r} was "
                         "written under a different exchange schedule, "
@@ -327,7 +390,7 @@ class Session:
                 f"resume(): every checkpoint in "
                 f"{spec.checkpoint_dir!r} is corrupt; training from "
                 "scratch", RuntimeWarning, stacklevel=2)
-            return self.run()
+            return self.run(retry=retry)
         if not np.array_equal(state["resume_hash"],
                               _hash_array(spec.resume_hash)):
             raise ValueError(
@@ -339,7 +402,7 @@ class Session:
             start_round=step,
             state=(state["params"], state["opt_state"],
                    int(state["step_idx"]), state["sched"]),
-            resumed_from=step)
+            resumed_from=step, retry=retry)
 
     def predict(self, x, params=None):
         """Class predictions on raw (original-column-order) inputs.
@@ -373,10 +436,25 @@ class Session:
         raise deferred("Session.serve()", 5, "serving/federated.py")
 
     # ------------------------------------------------------------------
+    def _retry_policy(self, retry) -> Optional[RetryPolicy]:
+        """Resolve the run()/resume() ``retry`` argument: "auto" arms
+        the default policy exactly when the spec carries a fault plan
+        (fault-free runs keep the loop without snapshots)."""
+        if retry == "auto":
+            return RetryPolicy() if self.spec.fault != "none" else None
+        if retry is None or retry is False:
+            return None
+        if isinstance(retry, RetryPolicy):
+            return retry
+        raise TypeError(
+            f"retry must be 'auto', None/False, or a RetryPolicy; got "
+            f"{type(retry).__name__}")
+
     def _run_federated(self, key=None, start_round=0, state=None,
-                       resumed_from=None) -> RunResult:
+                       resumed_from=None, retry="auto") -> RunResult:
         spec = self.spec
         fed = self.federation
+        policy = self._retry_policy(retry)
         seed = spec.seed if key is None else key
         if state is None:
             init_gen, _ = train_generators(seed)
@@ -385,18 +463,63 @@ class Session:
         else:
             params, opt_state, step_idx, sched_state = state
             params, opt_state = fed.start(params, opt_state)
+        draws = fed.draws(seed)
         history = []
+        trips = retries = attempt = 0
+        snapshot = None if policy is None else _copy_state(
+            (params, opt_state, step_idx, sched_state))
         self._sync()
         t0 = time.perf_counter()
-        for r in range(start_round, spec.rounds):
-            with self.tracer.span("round", cat="train", round=r):
-                params, opt_state, step_idx, losses = fed.run_round(
-                    params, opt_state, step_idx,
-                    fed.perms(round_generator(seed, r)))
+        r = start_round
+        while r < spec.rounds:
+            # a retried round draws its batches, coins and noise from a
+            # reseeded stream; attempt 0 keeps the canonical one, so a
+            # run that never trips is the watchdog-free run bit for bit
+            with self.tracer.span("round", cat="train", round=r,
+                                  attempt=attempt):
+                params, opt_state, step_idx, sched_state, losses = \
+                    fed.run_round(params, opt_state, step_idx,
+                                  fed.perms(round_generator(seed, r,
+                                                            attempt)),
+                                  sched_state, draws.round(r, attempt))
+            round_losses = None
+            if policy is not None:
+                round_losses = losses.cpu().numpy()
+                if diverged(round_losses, policy.loss_threshold):
+                    trips += 1
+                    if attempt >= policy.max_retries:
+                        raise DivergenceError(
+                            f"round {r} of spec {spec.spec_hash} "
+                            f"(fault={spec.fault!r}, "
+                            f"schedule={spec.schedule!r}) diverged "
+                            f"(non-finite loss or |loss| > "
+                            f"{policy.loss_threshold:g}) and stayed "
+                            f"diverged after {policy.max_retries} "
+                            "reseeded retries from the last good state; "
+                            "the run is not recoverable under this plan "
+                            "-- lower the fault rate / lr, raise "
+                            "RetryPolicy(max_retries=...), or inspect "
+                            "the exchange guard telemetry of a "
+                            "retry=None run")
+                    attempt += 1
+                    retries += 1
+                    pause = policy.sleep_s(attempt)
+                    if pause > 0:
+                        time.sleep(pause)
+                    # roll back: restore COPIES, so the snapshot survives
+                    # the next attempt's in-place updates
+                    p, o, step_idx, sched_state = _copy_state(snapshot)
+                    params, opt_state = fed.start(p, o)
+                    continue
+                attempt = 0
+                snapshot = _copy_state(
+                    (params, opt_state, step_idx, sched_state))
             if spec.eval_every and (r + 1) % spec.eval_every == 0:
                 ev = fed.evaluate(params)
                 ev["round"] = r
-                ev["round_losses"] = losses.cpu().numpy()
+                ev["round_losses"] = (losses.cpu().numpy()
+                                      if round_losses is None
+                                      else round_losses)
                 ev["loss"] = float(ev["round_losses"][-1])
                 history.append(ev)
             if spec.checkpoint_every and \
@@ -407,18 +530,29 @@ class Session:
                      "step_idx": np.asarray(step_idx, np.int32),
                      "sched": sched_state,
                      "resume_hash": _hash_array(spec.resume_hash),
-                     "schedule_hash": _hash_array(_STREAM_STAMP)},
+                     "schedule_hash": _hash_array(_stream_stamp(spec))},
                     name=_CKPT_NAME)
+            r += 1
         self._sync()
         wall = time.perf_counter() - t0
         final = fed.evaluate(params)
         steps = (spec.rounds - start_round) * spec.epochs * fed.n_batches
         telemetry = Telemetry(wall_s=wall, steps=steps,
                               steps_per_sec=steps / max(wall, 1e-9))
-        # the sync path carries no fault, wire or obs state: these
-        # stay None, as the reference's do at the defaults
-        telemetry.fault = fed.fault_telemetry(sched_state)
-        telemetry.wire = fed.wire_telemetry(sched_state)
+        tel = fed.fault_telemetry(sched_state)
+        if tel is not None or policy is not None:
+            telemetry.fault = {
+                **({k: int(v) for k, v in tel.items()} if tel else {}),
+                "watchdog_trips": trips, "retries": retries}
+        wtel = fed.wire_telemetry(sched_state)
+        if wtel is not None:
+            # cumulative since round 0: the counters ride the carried
+            # state, which a checkpoint restores
+            raw, enc = int(wtel["raw_bytes"]), int(wtel["encoded_bytes"])
+            telemetry.wire = {
+                "raw_bytes": raw, "encoded_bytes": enc,
+                "raw_bytes_per_round": raw // max(spec.rounds, 1),
+                "encoded_bytes_per_round": enc // max(spec.rounds, 1)}
         telemetry.series = fed.obs_series(sched_state)
         return self._result(final, history,
                             tree_map(lambda p: p.detach().clone(), params),
@@ -439,7 +573,9 @@ class Session:
                    "final_loss_mean": cell["final_loss_mean"],
                    "seeds": cell["seeds"]}
         telemetry = Telemetry(wall_s=cell["wall_s"],
-                              steps_per_sec=cell["steps_per_sec"])
+                              steps_per_sec=cell["steps_per_sec"],
+                              fault=cell.get("fault_telemetry"),
+                              wire=cell.get("wire"))
         return self._result(metrics, [], None, telemetry)
 
     def _splitnn_config(self, seed) -> SplitNNConfig:
@@ -507,10 +643,10 @@ def spec_grid(datasets=("mnist", "fmnist", "titanic", "bank"),
               schedules=("sync",), faults=("none",),
               transforms=("none",), **common):
     """The cartesian datasets x modes x transforms x faults x schedules
-    x client_counts spec grid, as the reference builds it.  ``common``
-    forwards to every ExperimentSpec (rounds=, epochs=, first_layer=,
-    ...).  Only the default schedule, fault and transform run here
-    (ROADMAP.md, Queue 1 item 4): ExperimentSpec refuses the others."""
+    x client_counts spec grid, as the reference builds it (staleness-,
+    fault- and compression-tolerance grids are spec grids too).
+    ``common`` forwards to every ExperimentSpec (rounds=, epochs=,
+    first_layer=, ...)."""
     return tuple(
         ExperimentSpec(dataset=ds, mode=mode, n_clients=nc, seeds=seeds,
                        schedule=sched, fault=f, transform=t, **common)
@@ -590,8 +726,8 @@ def sweep_config_for_specs(specs):
             f"{[f'{ds}/{m}' for (ds, m), _ in groups]}; use "
             "repro_torch.api.run_grid for multi-group spec grids")
     (ds, mode), group = groups[0]
-    return ds, get_mode(mode).internal, _sweep_config(
-        group[0], _group_axes(group)[0])
+    return ds, get_mode(mode).internal, _sweep_config(group[0],
+                                                      *_group_axes(group))
 
 
 def run_grid(specs, shard=None, device=None):
@@ -599,19 +735,32 @@ def run_grid(specs, shard=None, device=None):
     another): one lane batch a (dataset, mode) group, exactly
     ``core.sweep.run_grid``'s execution and schema ({"cells":
     {"ds/mode/n": cell}, "compare": ...}), each cell stamped with the
-    ``spec_hash`` of the spec that produced it.  ``shard`` overrides
+    ``spec_hash`` of the spec that produced it.  As in the reference, a
+    non-default schedule axis inserts the schedule into the keys
+    ("ds/mode/sched/n"), a non-default fault axis prepends the plan
+    ("ds/mode/fault/sched/n") and a non-default transform axis the
+    transform ("ds/mode/transform/fault/sched/n").  ``shard`` overrides
     the specs' shard policy."""
     cells, compare = {}, {}
     for (ds, mode), group in _grid_groups(specs):
+        counts, schedules, faults, transforms = _group_axes(group)
         out = SW.run_padded_cells(
             ds, get_mode(mode).internal,
-            _sweep_config(group[0], _group_axes(group)[0]),
+            _sweep_config(group[0], counts, schedules, faults, transforms),
             shard=group[0].shard if shard is None else shard,
             device=device)
         for s in group:
-            cell = out["cells"][s.n_clients]
+            if transforms != ("none",):
+                ck = (f"{s.transform}/{s.fault}/{s.schedule}/"
+                      f"{s.n_clients}")
+            elif faults != ("none",):
+                ck = f"{s.fault}/{s.schedule}/{s.n_clients}"
+            elif schedules != ("sync",):
+                ck = f"{s.schedule}/{s.n_clients}"
+            else:
+                ck = s.n_clients
+            cell = out["cells"][ck]
             cell["spec_hash"] = s.spec_hash
-            cells[f"{ds}/{mode}/{s.n_clients}"] = cell
-            compare.setdefault(f"{ds}/{s.n_clients}", {})[mode] = \
-                cell["f1_mean"]
+            cells[f"{ds}/{mode}/{ck}"] = cell
+            compare.setdefault(f"{ds}/{ck}", {})[mode] = cell["f1_mean"]
     return {"cells": cells, "compare": compare}

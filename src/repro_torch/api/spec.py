@@ -22,8 +22,11 @@ the same lane in both packages carries the same id, letter for letter:
                       different executions and keep different hashes.
 
 No pytree registration: nothing here is traced.  ``schedule``,
-``fault``, ``transform`` and ``obs`` accept only their defaults until
-ROADMAP.md, Queue 1 item 4 ports them.
+``fault`` and ``transform`` are validated against their registries and
+canonicalized as the reference does (``"stale_k"`` -> ``"stale_k:1"``),
+so a spec hashes as the reference's; their defaults are dropped from
+the hash.  ``obs`` accepts only "none" until ROADMAP.md, Queue 1 item
+4d ports it.
 """
 from __future__ import annotations
 
@@ -35,9 +38,12 @@ from typing import Optional, Tuple, Union
 
 from repro_torch.api.modes import get_mode
 from repro_torch.configs import get_config
-from repro_torch.core.protocol import (FIRST_LAYERS, UNPORTED_DEFAULTS,
+from repro_torch.core.protocol import (AXIS_DEFAULTS, FIRST_LAYERS,
                                        auto_first_layer, refuse_unported)
 from repro_torch.data import registry as DR
+from repro_torch.faults import get_fault_plan
+from repro_torch.schedule import get_schedule
+from repro_torch.wire import get_wire_plan
 
 # knobs that change what is *recorded*, not what is *computed* -- kept
 # out of spec_hash so observation settings don't fork experiment ids
@@ -63,10 +69,13 @@ class ExperimentSpec:
     fedavg: bool = True
     engine: str = "scan"            # scan | python: the same loop here
     first_layer: str = "auto"       # auto | kernel | slice | masked | custom
-    schedule: str = "sync"          # only "sync" runs (Queue 1 item 4)
-    fault: str = "none"             # only "none" runs (Queue 1 item 4)
-    transform: str = "none"         # only "none" runs (Queue 1 item 4)
-    obs: str = "none"               # only "none" runs (Queue 1 item 4)
+    # the round engine's layers (repro_torch.schedule / .faults /
+    # .wire spec strings, canonicalized); non-default values run
+    # devertifl federations only
+    schedule: str = "sync"
+    fault: str = "none"
+    transform: str = "none"
+    obs: str = "none"               # only "none" runs (Queue 1 item 4d)
     max_clients: Optional[int] = None   # pad client axis with dead slots
     shard: Union[str, bool, int] = "auto"   # grid lanes: "auto"|False|int
     n_samples: Optional[int] = None     # dataset size override (speed)
@@ -91,6 +100,32 @@ class ExperimentSpec:
         # alias cannot fork spec_hash: same experiment, same id
         object.__setattr__(self, "mode", mode.name)
         FIRST_LAYERS.get(self.first_layer)       # raises w/ options
+        sched = get_schedule(self.schedule)      # raises w/ options
+        # canonicalize ("stale_k" -> "stale_k:1") so formatting cannot
+        # fork spec_hash; stale_k:0 and partial:1.0 keep their identity
+        object.__setattr__(self, "schedule", sched.spec)
+        if not sched.is_sync and mode.internal != "devertifl":
+            raise ValueError(
+                f"schedule {sched.spec!r} requires mode='devertifl' "
+                f"(the scheduled dataflow is the forward "
+                f"HiddenOutputExchange); mode {self.mode!r} supports "
+                "schedule='sync' only")
+        plan = get_fault_plan(self.fault)        # raises w/ options
+        object.__setattr__(self, "fault", plan.spec)
+        if not plan.is_none and mode.internal != "devertifl":
+            raise ValueError(
+                f"fault plan {plan.spec!r} requires mode='devertifl' "
+                "(faults are injected into the forward "
+                f"HiddenOutputExchange); mode {self.mode!r} supports "
+                "fault='none' only")
+        wire = get_wire_plan(self.transform)     # raises w/ options
+        object.__setattr__(self, "transform", wire.spec)
+        if not wire.is_none and mode.internal != "devertifl":
+            raise ValueError(
+                f"transform {wire.spec!r} requires mode='devertifl' "
+                "(the transformed dataflow is the forward "
+                f"HiddenOutputExchange); mode {self.mode!r} supports "
+                "transform='none' only")
         refuse_unported(self)
         if self.first_layer == "auto":
             # resolve "auto" NOW so the spec (and its hash) records the
@@ -164,7 +199,7 @@ class ExperimentSpec:
         # shipped: their defaults are dropped so every spec keeps the
         # id it had before them, as in the reference
         for name in ("schedule", "fault", "transform"):
-            if d.get(name) == UNPORTED_DEFAULTS[name]:
+            if d.get(name) == AXIS_DEFAULTS[name]:
                 del d[name]
         blob = json.dumps(d, sort_keys=True, default=list)
         return hashlib.sha256(blob.encode()).hexdigest()[:16]

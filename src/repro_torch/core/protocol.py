@@ -1,6 +1,6 @@
 """De-VertiFL training protocol (Algorithms 1 + 2), plus the
 non-federated baseline and the VertiComb-style backward-exchange
-baseline: the port of ``repro.core.protocol``, synchronous path only.
+baseline: the port of ``repro.core.protocol``.
 
 All n clients are simulated in one process by stacking per-client
 parameters on a leading axis (``PaperMLP`` holds them so); the exchange
@@ -12,6 +12,7 @@ Pieces, each named after its counterpart in the JAX package:
   make_step_fn         one optimizer step for all clients (per mode)
   make_perm_fn         epoch shuffles drawn from a torch.Generator
   make_round_fn        a round: every batch of every epoch, then FedAvg
+  resolve_engine       the schedule -> fault -> wire impl chain
   make_h_all_fn        per-client activations at the exchange point
   make_predict_fn      per-client inference with the evaluation exchange
 
@@ -57,9 +58,16 @@ round r draws its batches from ``round_generator(seed, r)`` alone (the
 reference's ``fold_in(loop_key, r)``), so a run resumed at round r
 replays rounds r.. without replaying the rounds before.
 
-Not ported yet (they raise NotImplementedError): non-sync ``schedule``,
-``fault``, ``transform`` and ``obs`` plans -- ROADMAP.md, Queue 1
-item 4.
+The round engine's schedule, fault and wire layers
+(``repro_torch.schedule``, ``repro_torch.faults``, ``repro_torch.wire``):
+a non-sync ``schedule`` or a non-none ``fault`` or ``transform`` (all
+devertifl only) wraps the round in an impl chain, schedule -> fault ->
+wire (``resolve_engine``), whose state the round threads through:
+``round_start`` with the round's draws (``repro_torch.core.draws``),
+``select`` every step, ``fedavg_mask`` and ``round_end``.  Literal
+"sync" with every plan at "none" keeps the sync path untouched, bit
+for bit.  ``obs`` other than "none" is not ported yet (ROADMAP.md,
+Queue 1 item 4d) and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -73,15 +81,20 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import partition as PT
+from repro_torch.core.draws import CounterDraws
 from repro_torch.core.exchange import (by_lane, fedavg,
                                        hidden_output_exchange)
 from repro_torch.data import registry as DR
+from repro_torch.faults import RESEED_TAG, get_fault_plan, make_fault_impl
 from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
 from repro_torch.metrics import accuracy, f1_score
 from repro_torch.models.mlp_model import PaperMLP
 from repro_torch.optim import adam
 from repro_torch.registry import Registry
+from repro_torch.schedule import (get_schedule, make_sched_step_fn,
+                                  make_schedule_impl, promote_sync)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.wire import get_wire_plan, make_wire_impl
 
 
 @dataclass
@@ -102,7 +115,12 @@ class ProtocolConfig:
     n_samples: Optional[int] = None     # dataset size override (speed)
     engine: str = "scan"                # scan | python: the same loop here
     first_layer: str = "auto"           # auto | kernel | slice | masked
-    # Not ported yet: only the defaults run (ROADMAP.md Queue 1 item 4).
+    # The round engine's layers (devertifl only): an exchange schedule
+    # ("sync", "stale_k:2", "partial:0.5[:det]", "double_buffer",
+    # "stale_k:4+partial:0.5"), a fault plan ("none", "crash:0.2[:dur]",
+    # "straggle:0.5:2", "corrupt:0.05[:scale]", '+'-joined) and a wire
+    # transform ("none", "topk:0.5", "int8", "dp:0.1", '+'-joined).
+    # obs runs only at "none" (ROADMAP.md, Queue 1 item 4d).
     schedule: str = "sync"
     fault: str = "none"
     transform: str = "none"
@@ -122,8 +140,9 @@ class ProtocolConfig:
         return self.max_clients or self.n_clients
 
 
-UNPORTED_DEFAULTS = {"schedule": "sync", "fault": "none",
-                     "transform": "none", "obs": "none"}
+# the round-engine axes' defaults: a spec at these runs the sync path
+AXIS_DEFAULTS = {"schedule": "sync", "fault": "none",
+                 "transform": "none", "obs": "none"}
 ENGINES = ("scan", "python")
 MODES = ("devertifl", "non_federated", "verticomb")
 
@@ -137,14 +156,12 @@ def deferred(what, item, name) -> NotImplementedError:
 
 
 def refuse_unported(cfg) -> None:
-    """Raise unless ``cfg``'s schedule, fault, transform and obs are
-    the defaults, the only values the port runs so far."""
-    for field, default in UNPORTED_DEFAULTS.items():
-        if getattr(cfg, field) != default:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r} is not ported to "
-                f"repro_torch yet (only {field}={default!r}); see "
-                "ROADMAP.md, Queue 1 item 4")
+    """Raise unless ``cfg``'s obs level is "none", the only one the port
+    runs so far."""
+    if cfg.obs != "none":
+        raise NotImplementedError(
+            f"obs={cfg.obs!r} is not ported to repro_torch yet (only "
+            "obs='none'); see ROADMAP.md, Queue 1 item 4d (obs/)")
 
 
 def check_config(pcfg) -> None:
@@ -218,6 +235,71 @@ def resolve_first_layer(pcfg, device) -> str:
                 "first_layer='masked'")
         fl = "masked"
     return fl
+
+
+def exchange_width(model, exchange_at) -> int:
+    """Trailing width of the exchanged tensor -- what a schedule buffer
+    holds per client per batch row: logits (exchange_at == -1), the raw
+    input (0), or the hidden width (after layer k)."""
+    if exchange_at == -1:
+        return model.n_classes
+    if exchange_at == 0:
+        return model.in_features
+    return model.hidden
+
+
+def resolve_schedule(pcfg, model, n_train, device):
+    """pcfg.schedule -> (Schedule, impl).  ``impl`` is None for the
+    literal "sync" spec: the sync path runs untouched.  Non-sync
+    schedules (the degenerate stale_k:0 / partial:1.0 included, which
+    run the schedule engine and reduce to sync bitwise) are devertifl
+    only: the forward exchange is what is being scheduled."""
+    sched = get_schedule(pcfg.schedule)
+    if sched.is_sync:
+        return sched, None
+    if pcfg.mode != "devertifl":
+        raise ValueError(
+            f"schedule {sched.spec!r} requires mode='devertifl'; mode "
+            f"{pcfg.mode!r} supports schedule='sync' only")
+    impl = make_schedule_impl(
+        sched, pcfg.padded_clients, min(pcfg.batch_size, n_train),
+        exchange_width(model, pcfg.exchange_at), device)
+    return sched, impl
+
+
+def resolve_engine(pcfg, model, n_train, device):
+    """pcfg.schedule + pcfg.fault + pcfg.transform -> (Schedule, impl).
+    With ``fault="none"`` and ``transform="none"`` this IS
+    :func:`resolve_schedule`, so literal sync keeps its path.  A
+    non-none plan (devertifl only) wraps the schedule impl in the fault
+    layer, then the wire layer (schedule -> fault -> wire: wire
+    outermost, so it transforms what the inner layers buffer and
+    screen); literal sync is first promoted to a depth-0 ring impl
+    (``stale_k:0``, bitwise sync) so the wrappers have hooks to ride.
+    ``obs`` is refused by ``check_config`` (ROADMAP.md, Queue 1 item
+    4d)."""
+    sched, impl = resolve_schedule(pcfg, model, n_train, device)
+    n, bs = pcfg.padded_clients, min(pcfg.batch_size, n_train)
+    width = exchange_width(model, pcfg.exchange_at)
+
+    def promoted(impl):
+        return promote_sync(impl, n, bs, width, device)
+
+    plan = get_fault_plan(pcfg.fault)
+    if not plan.is_none:
+        if pcfg.mode != "devertifl":
+            raise ValueError(
+                f"fault plan {plan.spec!r} requires mode='devertifl'; "
+                f"mode {pcfg.mode!r} supports fault='none' only")
+        impl = make_fault_impl(plan, promoted(impl), n, bs, width, device)
+    wire = get_wire_plan(pcfg.transform)
+    if not wire.is_none:
+        if pcfg.mode != "devertifl":
+            raise ValueError(
+                f"transform {wire.spec!r} requires mode='devertifl'; "
+                f"mode {pcfg.mode!r} supports transform='none' only")
+        impl = make_wire_impl(wire, promoted(impl), n, bs, width, device)
+    return sched, impl
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +564,7 @@ def _assign(params, new):
 
 
 def make_round_fn(model, opt, pcfg, n_train, layout, device,
-                  fedavg_fn=None):
+                  fedavg_fn=None, impl=None):
     """One De-VertiFL round: the step over every row of the round's
     batch-index matrix, then the P2P FedAvg (Algorithm 1 lines 16-19)
     written into the parameters in place.
@@ -491,6 +573,13 @@ def make_round_fn(model, opt, pcfg, n_train, layout, device,
     (params, opt_state, step_idx, losses[epochs*n_batches]); idx is the
     [epochs*n_batches, bs] matrix on the device, xtr in canonical
     column order.  Losses stay on the device.
+
+    With an engine impl (``resolve_engine``) the round threads its
+    state: round_fn(..., lay, sched_state, draws) -> (params,
+    opt_state, step_idx, sched_state, losses), ``draws`` the round's
+    ``RoundDraws``: round_start, the scheduled step over every batch,
+    FedAvg weighted by the round's mask (less the fault layer's
+    quarantine), round_end.
     """
     do_fedavg = pcfg.fedavg and pcfg.mode != "non_federated"
     fedavg_fn = fedavg_fn or fedavg
@@ -501,13 +590,16 @@ def make_round_fn(model, opt, pcfg, n_train, layout, device,
             "the client axis is padded (max_clients > n_clients): a "
             "mask-blind aggregator would average dead slots' params "
             "into every live client")
+    if impl is not None:
+        return make_sched_round_fn(
+            impl, make_sched_step_fn(model, opt, pcfg, impl, layout, device),
+            fedavg_fn if do_fedavg else None)
     step = make_step_fn(model, opt, pcfg, layout, device)
 
     def round_fn(params, opt_state, step_idx, idx, xtr, ytr, lay):
         losses = []
         for batch_idx in idx:
-            xb = xtr.index_select(0, batch_idx)
-            yb = ytr.index_select(0, batch_idx)
+            xb, yb = _batch_rows(xtr, ytr, batch_idx)
             params, opt_state, loss = step(params, opt_state, lay, xb, yb,
                                            step_idx)
             step_idx += 1
@@ -517,6 +609,47 @@ def make_round_fn(model, opt, pcfg, n_train, layout, device,
                 _assign(params, call_fedavg(fedavg_fn, params,
                                             lay.client_mask))
         return params, opt_state, step_idx, torch.stack(losses)
+
+    return round_fn
+
+
+def _batch_rows(xtr, ytr, batch_idx):
+    return xtr.index_select(0, batch_idx), ytr.index_select(0, batch_idx)
+
+
+def make_sched_round_fn(impl, step, fedavg_fn):
+    """The round under an engine impl (``make_round_fn``): ``step`` is
+    ``make_sched_step_fn``'s, ``fedavg_fn`` None when the round does not
+    average.  The round's ``batch_rows(xtr, ytr, batch_idx) -> (xb,
+    yb)`` gathers a step's batch (a lane batch gathers every lane's);
+    its index is ``step_idx // len(idx)``."""
+    if fedavg_fn is not None and not accepts_client_mask(fedavg_fn):
+        raise ValueError(
+            "custom fedavg_fn must accept a client_mask= keyword "
+            "under a non-sync exchange schedule: the per-round "
+            "participation mask weights the aggregation")
+    fedavg_mask = getattr(impl, "fedavg_mask", None)
+
+    def round_fn(params, opt_state, step_idx, idx, xtr, ytr, lay,
+                 sched_state, draws, batch_rows=None):
+        batch_rows = batch_rows or _batch_rows
+        sched_state, eff = impl.round_start(sched_state, lay, draws,
+                                            step_idx // len(idx))
+        losses = []
+        for batch_idx in idx:
+            xb, yb = batch_rows(xtr, ytr, batch_idx)
+            params, opt_state, sched_state, loss = step(
+                params, opt_state, lay, eff, sched_state, xb, yb, step_idx)
+            step_idx += 1
+            losses.append(loss)
+        if fedavg_fn is not None:
+            mask = eff if fedavg_mask is None else fedavg_mask(sched_state,
+                                                               eff)
+            with torch.no_grad():
+                _assign(params, fedavg_fn(params, client_mask=mask))
+        sched_state = impl.round_end(sched_state)
+        return (params, opt_state, step_idx, sched_state,
+                torch.stack(losses, dim=-1))
 
     return round_fn
 
@@ -573,15 +706,19 @@ def train_generators(seed: int):
                  for ss in np.random.SeedSequence(seed).spawn(2))
 
 
-def round_generator(seed: int, r: int) -> torch.Generator:
+def round_generator(seed: int, r: int, attempt: int = 0) -> torch.Generator:
     """Round r's batch-order generator: the counterpart of the
     reference's ``fold_in(loop_key, r)``.  Its state depends only on
     (seed, r) -- the loop stream's SeedSequence with r appended to its
     spawn key -- so a resumed run draws round r's batches without
-    replaying rounds 0..r-1."""
+    replaying rounds 0..r-1.  A retried round (``attempt > 0``, the
+    watchdog's reseed) appends ``(RESEED_TAG, attempt)`` as well."""
     loop_ss = np.random.SeedSequence(seed).spawn(2)[1]
-    return _generator(np.random.SeedSequence(
-        loop_ss.entropy, spawn_key=loop_ss.spawn_key + (int(r),)))
+    key = loop_ss.spawn_key + (int(r),)
+    if attempt > 0:
+        key += (RESEED_TAG, int(attempt))
+    return _generator(np.random.SeedSequence(loop_ss.entropy,
+                                             spawn_key=key))
 
 
 # ---------------------------------------------------------------------------
@@ -630,9 +767,12 @@ class DeVertiFL:
         plan = make_perm_fn(pcfg, n_train)
         self.perms = plan.perms
         self.n_batches, self.bs = plan.n_batches, plan.batch_size
+        self._schedule, self._impl = resolve_engine(pcfg, self.model,
+                                                    n_train, self.device)
         self._round = make_round_fn(self.model, self.opt, pcfg, n_train,
                                     self.layout, self.device,
-                                    fedavg_fn=self._fedavg_fn)
+                                    fedavg_fn=self._fedavg_fn,
+                                    impl=self._impl)
         self._predict = make_predict_fn(self.model, pcfg, self.layout,
                                         self.device)
 
@@ -642,23 +782,35 @@ class DeVertiFL:
         self._fedavg_fn = fedavg_fn
         self._build_steps()
 
-    # the sync path carries no schedule, fault, wire or obs state; the
-    # Session threads these through as the reference's does
+    # the engine impl's state: what run_round threads and the Session
+    # checkpoints, as the reference's does
     def init_sched_state(self) -> dict:
-        """The exchange-schedule state a round carries: ``{}`` (sync)."""
-        return {}
+        """The engine state a round carries: ``{}`` on the sync path."""
+        return {} if self._impl is None else \
+            self._impl.init_state(self._schedule)
 
     def fault_telemetry(self, sched_state):
-        """Fault-event counters: None (no fault plan runs here)."""
-        return None
+        """Cumulative fault-event counters of the carried state, or None
+        when no fault plan runs."""
+        tel = getattr(self._impl, "telemetry", None)
+        return None if tel is None else tel(sched_state)
 
     def wire_telemetry(self, sched_state):
-        """Bytes-on-wire counters: None (no transform runs here)."""
-        return None
+        """Cumulative bytes-on-wire counters of the carried state, or
+        None when no transform runs."""
+        tel = getattr(self._impl, "wire_telemetry", None)
+        return None if tel is None else tel(sched_state)
 
     def obs_series(self, sched_state):
         """Per-round metric series: None (obs="none")."""
         return None
+
+    def draws(self, seed=None) -> CounterDraws:
+        """The coin and noise source of this federation's slots at
+        ``seed`` (default ``pcfg.seed``): ``.round(r, attempt)`` is what
+        ``run_round`` takes as ``draws``."""
+        return CounterDraws(self.pcfg.seed if seed is None else seed,
+                            self.pcfg.padded_clients, self.device)
 
     # ------------------------------------------------------------------
     def init_params(self, generator) -> dict:
@@ -676,10 +828,24 @@ class DeVertiFL:
         return params, (self.opt.init(params) if opt_state is None
                         else opt_state)
 
-    def run_round(self, params, opt_state, step_idx, idx):
+    def run_round(self, params, opt_state, step_idx, idx,
+                  sched_state=None, draws=None):
         """One round over the [epochs*n_batches, bs] index matrix
         ``idx`` (e.g. ``self.perms(generator)``), training ``params``
-        in place.  Returns (params, opt_state, step_idx, losses)."""
+        in place.  Returns (params, opt_state, step_idx, losses).
+
+        Given ``sched_state`` (``init_sched_state()`` or a later round's)
+        it returns (params, opt_state, step_idx, sched_state, losses),
+        the engine's state threaded through the round; a federation with
+        a schedule, fault plan or transform needs it.  ``draws`` is the
+        round's coin and noise source (default:
+        ``self.draws().round(step_idx // steps a round)``)."""
+        if sched_state is None and self._impl is not None:
+            raise ValueError(
+                "this federation carries engine state (schedule "
+                f"{self.pcfg.schedule!r}, fault {self.pcfg.fault!r}, "
+                f"transform {self.pcfg.transform!r}): pass "
+                "sched_state= (init_sched_state() to start)")
         if not isinstance(idx, torch.Tensor):
             idx = torch.tensor(np.asarray(idx), dtype=torch.int64)
         idx = idx.to(self.device, torch.int64)
@@ -688,8 +854,15 @@ class DeVertiFL:
             raise ValueError(f"index matrix {tuple(idx.shape)}; this "
                              "round takes "
                              f"{(self.pcfg.epochs * self.n_batches, self.bs)}")
+        if self._impl is None:
+            out = self._round(params, opt_state, step_idx, idx, self._xtr,
+                              self._ytr, self._lay)
+            return out if sched_state is None else \
+                out[:3] + (sched_state,) + out[3:]
+        if draws is None:
+            draws = self.draws().round(step_idx // idx.shape[0])
         return self._round(params, opt_state, step_idx, idx, self._xtr,
-                           self._ytr, self._lay)
+                           self._ytr, self._lay, sched_state, draws)
 
     def predict(self, params, x):
         xc = torch.as_tensor(
@@ -713,7 +886,9 @@ class DeVertiFL:
         ``train_generators(seed)`` and round r's permutations from
         ``round_generator(seed, r)`` (default ``pcfg.seed``) into the
         model's parameters.  Returns {"history", "final",
-        "params"}, params a detached copy of the final tree."""
+        "params", "sched_state"}, params a detached copy of the final
+        tree and sched_state the engine's final state (``{}`` on the
+        sync path; ``fault_telemetry``/``wire_telemetry`` read it)."""
         pcfg = self.pcfg
         engine = engine or pcfg.engine
         if engine not in ENGINES:
@@ -722,10 +897,12 @@ class DeVertiFL:
         init_gen, _ = train_generators(seed)
         params, opt_state = self.start(self.init_params(init_gen))
         step_idx, history = 0, []
+        sched_state, draws = self.init_sched_state(), self.draws(seed)
         for r in range(pcfg.rounds):
-            params, opt_state, step_idx, losses = self.run_round(
-                params, opt_state, step_idx,
-                self.perms(round_generator(seed, r)))
+            params, opt_state, step_idx, sched_state, losses = \
+                self.run_round(params, opt_state, step_idx,
+                               self.perms(round_generator(seed, r)),
+                               sched_state, draws.round(r))
             if eval_every_round:
                 ev = self.evaluate(params)
                 ev["round"] = r
@@ -734,7 +911,8 @@ class DeVertiFL:
                 history.append(ev)
         final = self.evaluate(params)
         return {"history": history, "final": final,
-                "params": tree_map(lambda p: p.detach().clone(), params)}
+                "params": tree_map(lambda p: p.detach().clone(), params),
+                "sched_state": sched_state}
 
 
 def train_federation(device=None, **kw):

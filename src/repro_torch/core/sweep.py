@@ -1,5 +1,5 @@
-"""Seeds x client counts as lanes of one batched round: the port of
-``repro.core.sweep``, synchronous path.
+"""Seeds x client counts x schedules x fault plans x transforms as
+lanes of one batched round: the port of ``repro.core.sweep``.
 
 Grid semantics
 --------------
@@ -46,10 +46,26 @@ A dead slot gets relu(bias) in all three.  "auto" resolves as
 registered custom first layer is refused.  A masked lane reproduces the
 standalone runs bit for bit on the CPU.
 
+Schedule, fault and transform lanes
+-----------------------------------
+``SweepConfig.schedules``, ``faults`` and ``transforms`` are lane axes
+too, as in the reference: every (transform, fault, schedule) value
+repeats the same (count, seed) base lanes -- same data, layouts, inits
+and batch order -- transform-major, then fault-major, then
+schedule-major.  ONE engine impl serves every lane (one ring sized to
+the largest k, one straggler ring to the largest delay), and the lane
+batch's state holds each lane's plan: per-client leaves on every slot
+([L*max_c, ...] on their client axis), per-lane plan scalars [L],
+broadcast to the lane's slots (``repro_torch.schedule.engine``).  Each
+lane draws its coins and noise from its own seed and slot numbers
+(``repro_torch.core.draws``), so a lane is bitwise its standalone
+federation.  As in the reference, ``double_buffer`` cannot share an
+axis with other schedules and custom plans are refused in lanes.
+
 Devices: the port runs a lane batch on one device, so ``shard`` can only
-be 1 there (``_lane_shards``).  Not ported yet: the schedule, fault,
-transform and obs lane axes (ROADMAP.md, Queue 1 item 4); anything but
-their defaults raises ``NotImplementedError``.
+be 1 there (``_lane_shards``).  Not ported yet: the obs lane axis
+(ROADMAP.md, Queue 1 item 4d); anything but "none" raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -64,14 +80,21 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import partition as PT
+from repro_torch.core.draws import CounterDraws
 from repro_torch.core.exchange import fedavg
 from repro_torch.core.partition import LayoutArrays
 from repro_torch.core.protocol import (FIRST_LAYERS, ProtocolConfig,
-                                       arch_for, deferred, make_perm_fn,
-                                       make_predict_fn, make_step_fn,
+                                       arch_for, deferred, exchange_width,
+                                       make_perm_fn, make_predict_fn,
+                                       make_sched_round_fn, make_step_fn,
                                        resolve_device, resolve_first_layer,
                                        round_generator, train_generators)
 from repro_torch.data import registry as DR
+from repro_torch.faults import get_fault_plan, make_fault_impl
+from repro_torch.schedule import (get_schedule, make_sched_step_fn,
+                                  make_schedule_impl, promote_sync,
+                                  stack_lane_states)
+from repro_torch.wire import get_wire_plan, make_wire_impl
 from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
 from repro_torch.metrics import accuracy, f1_score
 from repro_torch.models.mlp_model import PaperMLP
@@ -93,24 +116,153 @@ class SweepConfig:
     fedavg: bool = True
     n_samples: Optional[int] = None     # dataset size override (speed)
     first_layer: str = "auto"           # auto | kernel | slice | masked
-    # lane axes of the JAX package's sweep; only their defaults run here
-    # (ROADMAP.md, Queue 1 item 4)
+    # the engine's lane axes (module doc): schedules (the sync / stale_k
+    # / partial family shares an axis; double_buffer stands alone),
+    # fault plans and transforms, devertifl only beyond their defaults
     schedules: Sequence[str] = ("sync",)
     faults: Sequence[str] = ("none",)
     transforms: Sequence[str] = ("none",)
+    # only "none" runs here (ROADMAP.md, Queue 1 item 4d)
     obs: Sequence[str] = ("none",)
 
 
-_DEFAULT_AXES = (("schedules", ("sync",)), ("faults", ("none",)),
-                 ("transforms", ("none",)), ("obs", ("none",)))
-
-
 def _refuse_deferred_axes(scfg) -> None:
-    for name, default in _DEFAULT_AXES:
-        axis = tuple(getattr(scfg, name))
-        if axis != default:
-            raise deferred(f"a sweep's {name}={axis!r} axis", 4,
-                           "schedule/faults/wire/obs")
+    axis = tuple(scfg.obs)
+    if axis != ("none",):
+        raise deferred(f"a sweep's obs={axis!r} axis", "4d", "obs/")
+
+
+# ---------------------------------------------------------------------------
+# the engine's lane axes
+# ---------------------------------------------------------------------------
+def _sweep_schedules(scfg, mode, model, n_clients, n_train, device):
+    """Parse scfg.schedules into (scheds, impl, sync_only) for a lane
+    batch of one (dataset, mode).  A sync-only axis gets impl=None (the
+    sync round).  Mixed schedule lanes must all belong to the sync /
+    stale_k / partial family: k and p ride the per-lane state, so ONE
+    ring impl (sized to the largest k) serves every lane.  double_buffer
+    carries a differently-shaped state and cannot share an axis; custom
+    schedules may close over per-federation statics and are refused."""
+    if not scfg.schedules:
+        raise ValueError("schedules must name at least one schedule")
+    scheds = tuple(get_schedule(s) for s in scfg.schedules)
+    if len(scheds) == 1 and scheds[0].is_sync:
+        return scheds, None, True
+    if mode != "devertifl":
+        raise ValueError(
+            f"schedules beyond 'sync' require mode='devertifl' sweep "
+            f"cells, got mode {mode!r}")
+    if any(s.custom is not None for s in scheds):
+        raise ValueError(
+            "custom schedules are not supported in sweep lanes (their "
+            "impls may close over per-federation statics the lane "
+            "vmap cannot vary); run them as standalone sessions")
+    if any(s.double_buffer for s in scheds) and len(scheds) > 1:
+        raise ValueError(
+            "double_buffer carries a differently-shaped schedule "
+            "state and cannot share a lane axis with other schedules; "
+            "sweep it as its own single-schedule batch")
+    depths = {s.k for s in scheds}
+    impl = make_schedule_impl(
+        scheds[0], n_clients, min(scfg.batch_size, n_train),
+        exchange_width(model, scfg.exchange_at), device,
+        max_k=None if len(depths) == 1 else max(depths))
+    return scheds, impl, False
+
+
+def _stacked_sched_state(impl, scheds, n_base):
+    """The lane batch's schedule state, schedule-major over a base of
+    n_base (count x seed) lanes."""
+    if impl is None:
+        return {}
+    return stack_lane_states(impl, [(impl.init_state(sc), n_base)
+                                    for sc in scheds])
+
+
+def _sweep_faults(scfg, mode, model, n_clients, n_train, impl, device):
+    """Parse scfg.faults into (plans, impl, none_only).  A none-only
+    axis hands the schedule impl back untouched.  Mixed fault lanes
+    share ONE FaultImpl: rates, durations and corruption kind are
+    per-lane state, the straggler ring is sized to the largest delay;
+    custom plans are refused."""
+    if not scfg.faults:
+        raise ValueError("faults must name at least one fault plan")
+    plans = tuple(get_fault_plan(f) for f in scfg.faults)
+    if len(plans) == 1 and plans[0].is_none:
+        return plans, impl, True
+    if mode != "devertifl":
+        raise ValueError(
+            f"fault plans beyond 'none' require mode='devertifl' sweep "
+            f"cells, got mode {mode!r}")
+    if any(p.custom is not None for p in plans):
+        raise ValueError(
+            "custom fault plans are not supported in sweep lanes "
+            "(their impls may close over per-federation statics the "
+            "lane vmap cannot vary); run them as standalone sessions")
+    bs = min(scfg.batch_size, n_train)
+    width = exchange_width(model, scfg.exchange_at)
+    impl = make_fault_impl(
+        plans[0], promote_sync(impl, n_clients, bs, width, device), n_clients,
+        bs, width, device, max_delay=max(p.max_delay for p in plans),
+        corrupts=any(p.corrupt is not None for p in plans))
+    return plans, impl, False
+
+
+def _stacked_fault_state(impl, plans, scheds, n_base, none_only):
+    """The lane batch's state, fault-major over the schedule-major base
+    ((plan, sched) blocks of n_base lanes).  A none-only fault axis
+    reduces to :func:`_stacked_sched_state`."""
+    if none_only:
+        return _stacked_sched_state(impl, scheds, n_base)
+    return stack_lane_states(impl, [(impl.init_state(sc, plan=pl), n_base)
+                                    for pl in plans for sc in scheds])
+
+
+def _sweep_transforms(scfg, mode, model, n_clients, n_train, impl,
+                      device):
+    """Parse scfg.transforms into (wires, impl, none_only).  A
+    none-only axis hands the schedule/fault impl back untouched.  Mixed
+    transform lanes share ONE WireImpl: keep fraction, quantize flag
+    and noise scale are per-lane state; custom transforms are
+    refused."""
+    if not scfg.transforms:
+        raise ValueError("transforms must name at least one transform")
+    wires = tuple(get_wire_plan(t) for t in scfg.transforms)
+    if len(wires) == 1 and wires[0].is_none:
+        return wires, impl, True
+    if mode != "devertifl":
+        raise ValueError(
+            f"transforms beyond 'none' require mode='devertifl' sweep "
+            f"cells, got mode {mode!r}")
+    if any(w.custom is not None for w in wires):
+        raise ValueError(
+            "custom transforms are not supported in sweep lanes (their "
+            "impls may close over per-federation statics the lane "
+            "vmap cannot vary); run them as standalone sessions")
+    bs = min(scfg.batch_size, n_train)
+    width = exchange_width(model, scfg.exchange_at)
+    impl = make_wire_impl(
+        wires[0], promote_sync(impl, n_clients, bs, width, device), n_clients,
+        bs, width, device, lanes=wires if len(wires) > 1 else None)
+    return wires, impl, False
+
+
+def _stacked_wire_state(impl, wires, plans, scheds, n_base,
+                        fault_none_only, wire_none_only):
+    """The lane batch's state, transform-major over the fault-major
+    over schedule-major base ((wire, plan, sched) blocks of n_base
+    lanes).  A none-only wire axis reduces to
+    :func:`_stacked_fault_state`."""
+    if wire_none_only:
+        return _stacked_fault_state(impl, plans, scheds, n_base,
+                                    fault_none_only)
+    blocks = []
+    for wp in wires:
+        for pl in plans:
+            kw = {"wire": wp} if fault_none_only else {"wire": wp,
+                                                       "plan": pl}
+            blocks += [(impl.init_state(sc, **kw), n_base) for sc in scheds]
+    return stack_lane_states(impl, blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +346,8 @@ def _sweep_first_layer(pcfg, device, width):
 # ---------------------------------------------------------------------------
 # the lane round and predict
 # ---------------------------------------------------------------------------
-def make_lane_round_fn(model, opt, pcfg, device, first_layer_fn):
+def make_lane_round_fn(model, opt, pcfg, device, first_layer_fn,
+                       impl=None):
     """One round of every lane: the step over each batch, then each
     lane's FedAvg.
 
@@ -203,18 +356,35 @@ def make_lane_round_fn(model, opt, pcfg, device, first_layer_fn):
     the device (lane l's batch-index matrix), xtr [L, n_train, F] in
     each lane's canonical order, ytr [L, n_train], lay the lanes-stacked
     LayoutArrays.  step_idx is shared: every lane takes the same steps.
-    """
-    step = make_step_fn(model, opt, pcfg, None, device,
-                        first_layer_fn=first_layer_fn)
-    do_fedavg = pcfg.fedavg and pcfg.mode != "non_federated"
 
-    def round_fn(params, opt_state, step_idx, idx, xtr, ytr, lay):
+    With an engine impl the round threads the lane batch's state:
+    round_fn(..., lay, sched_state, draws) -> (params, opt_state,
+    step_idx, sched_state, losses), as ``make_round_fn``'s.
+    """
+    do_fedavg = pcfg.fedavg and pcfg.mode != "non_federated"
+    if impl is not None:
+        sched_round = make_sched_round_fn(
+            impl, make_sched_step_fn(model, opt, pcfg, impl, None, device,
+                                     first_layer_fn=first_layer_fn),
+            fedavg if do_fedavg else None)
+    else:
+        step = make_step_fn(model, opt, pcfg, None, device,
+                            first_layer_fn=first_layer_fn)
+
+    def round_fn(params, opt_state, step_idx, idx, xtr, ytr, lay,
+                 sched_state=None, draws=None):
         flat = lane_arrays(lay)
         lanes = torch.arange(xtr.shape[0], device=xtr.device)[None, :]
+
+        def batch_rows(x, y, rows):                        # rows [bs, L]
+            return x[lanes, rows], y[lanes, rows].t()      # [bs, L, F]
+        if impl is not None:
+            return sched_round(params, opt_state, step_idx,
+                               idx.permute(1, 2, 0), xtr, ytr, flat,
+                               sched_state, draws, batch_rows=batch_rows)
         losses = []
-        for rows in idx.permute(1, 2, 0):                  # [bs, L]
-            xb = xtr[lanes, rows]                          # [bs, L, F]
-            yb = ytr[lanes, rows].t()                      # [L, bs]
+        for rows in idx.permute(1, 2, 0):
+            xb, yb = batch_rows(xtr, ytr, rows)
             params, opt_state, loss = step(params, opt_state, flat, xb,
                                            yb, step_idx)
             step_idx += 1
@@ -251,13 +421,14 @@ def _stack_layouts(layouts, device) -> LayoutArrays:
 
 
 def _stacked_lanes(dataset, client_counts, seeds, n_samples, max_c,
-                   device):
+                   device, n_tile=1):
     """Every (n_clients, seed) pair stacked on one lane axis,
-    count-major, padded to ``max_c`` slots.  Each seed's draw goes to
-    the device once and each lane's column order is one
-    ``index_select`` there.  Returns (xtr [L, n_train, F], ytr, xte,
-    yte on the device, lanes-stacked LayoutArrays, lanes, width: the
-    largest live slice)."""
+    count-major, padded to ``max_c`` slots, the whole base repeated
+    ``n_tile`` times (one block a (transform, fault, schedule) value).
+    Each seed's draw goes to the device once and each lane's column
+    order is one ``index_select`` there.  Returns (xtr [L, n_train, F],
+    ytr, xte, yte on the device, lanes-stacked LayoutArrays, lanes,
+    width: the largest live slice)."""
     xtr, ytr, xte, yte = DR.make_dataset_stack(dataset, seeds, n=n_samples)
     n_features = xtr.shape[-1]
     lanes, layouts = [], []
@@ -266,6 +437,7 @@ def _stacked_lanes(dataset, client_counts, seeds, n_samples, max_c,
             lanes.append((nc, s))
             layouts.append(PT.make_layout(dataset, n_features, nc, seed=s,
                                           max_clients=max_c))
+    lanes, layouts = lanes * n_tile, layouts * n_tile
     which = [seeds.index(s) for _, s in lanes]
 
     def per_lane(x, dtype, columns):
@@ -310,16 +482,44 @@ class LaneBatch(NamedTuple):
     xte: torch.Tensor
     yte: torch.Tensor
     lay: LayoutArrays           # [L, max_c, ...]
-    lanes: tuple                # ((n_clients, seed), ...) count-major
+    lanes: tuple                # ((n_clients, seed), ...) module doc
     n_train: int
     n_batches: int
     batch_size: int
     width: int
     device: torch.device
+    # the engine's lane axes: parsed values, the shared impl (None: the
+    # sync round) and its initial state, lanes a (wire, fault, sched)
+    # block
+    scheds: tuple = ()
+    plans: tuple = ()
+    wires: tuple = ()
+    impl: object = None
+    sched_state: dict = None
+    n_base: int = 0
 
     @property
     def n_lanes(self) -> int:
         return len(self.lanes)
+
+    @property
+    def sync_only(self) -> bool:
+        return self.impl is None
+
+    @property
+    def fault_none_only(self) -> bool:
+        return len(self.plans) == 1 and self.plans[0].is_none
+
+    @property
+    def wire_none_only(self) -> bool:
+        return len(self.wires) == 1 and self.wires[0].is_none
+
+    def round_draws(self, r, attempt=0):
+        """Round r's coins and noise: each lane's slots from its own
+        seed (``repro_torch.core.draws``)."""
+        return CounterDraws([s for _, s in self.lanes],
+                            self.n_lanes * self.pcfg.padded_clients,
+                            self.device, lanes=self.n_lanes).round(r, attempt)
 
     def round_indices(self, r) -> torch.Tensor:
         plan = make_perm_fn(self.pcfg, self.n_train)
@@ -343,9 +543,11 @@ def _init_lanes(model, opt, lanes, device):
 
 def build_lane_batch(dataset, mode, scfg: SweepConfig,
                      device=None) -> LaneBatch:
-    """Assemble the client_counts x seeds lane batch of one (dataset,
-    mode) pair on ``device`` (CUDA unless the caller names another):
-    stacked data and layouts, per-lane inits, the round."""
+    """Assemble the transforms x faults x schedules x client_counts x
+    seeds lane batch of one (dataset, mode) pair on ``device`` (CUDA
+    unless the caller names another): stacked data and layouts,
+    per-lane inits, the engine's shared impl and per-lane state, the
+    round."""
     _refuse_deferred_axes(scfg)
     device = resolve_device(device)
     counts, seeds = tuple(scfg.client_counts), tuple(scfg.seeds)
@@ -356,23 +558,37 @@ def build_lane_batch(dataset, mode, scfg: SweepConfig,
         batch_size=scfg.batch_size, lr=scfg.lr,
         exchange_at=scfg.exchange_at, mode=mode, fedavg=scfg.fedavg,
         n_samples=scfg.n_samples, first_layer=scfg.first_layer)
+    n_tile = max(1, len(scfg.transforms) * len(scfg.faults)
+                 * len(scfg.schedules))
     xtr, ytr, xte, yte, lay, lanes, width = _stacked_lanes(
-        dataset, counts, seeds, scfg.n_samples, max_c, device)
-    fl, first = _sweep_first_layer(pcfg, device, width)
+        dataset, counts, seeds, scfg.n_samples, max_c, device,
+        n_tile=n_tile)
     # one lane's model: its layers run every lane's stacked parameters
     model = PaperMLP(get_config(arch_for(dataset)), max_c)
+    n_train = xtr.shape[1]
+    scheds, impl, _ = _sweep_schedules(scfg, mode, model, max_c, n_train,
+                                       device)
+    plans, impl, fault_none = _sweep_faults(scfg, mode, model, max_c,
+                                            n_train, impl, device)
+    wires, impl, wire_none = _sweep_transforms(scfg, mode, model, max_c,
+                                               n_train, impl, device)
+    n_base = len(counts) * len(seeds)
+    fl, first = _sweep_first_layer(pcfg, device, width)
     opt = adam(pcfg.lr, max_grad_norm=None)
     params, opt_state = _init_lanes(model, opt, lanes, device)
-    n_train = xtr.shape[1]
-    plan = make_perm_fn(pcfg, n_train)
+    plan = make_perm_fn(pcfg, xtr.shape[1])
     return LaneBatch(
         pcfg=pcfg, model=model, opt=opt, first_layer=fl,
-        round_fn=make_lane_round_fn(model, opt, pcfg, device, first),
+        round_fn=make_lane_round_fn(model, opt, pcfg, device, first, impl),
         predict_fn=make_lane_predict_fn(model, pcfg, device, first),
         params=params, opt_state=opt_state, xtr=xtr, ytr=ytr, xte=xte,
-        yte=yte, lay=lay, lanes=lanes, n_train=n_train,
+        yte=yte, lay=lay, lanes=lanes, n_train=xtr.shape[1],
         n_batches=plan.n_batches, batch_size=plan.batch_size,
-        width=width, device=device)
+        width=width, device=device, scheds=scheds, plans=plans,
+        wires=wires, impl=impl,
+        sched_state=_stacked_wire_state(impl, wires, plans, scheds, n_base,
+                                        fault_none, wire_none),
+        n_base=n_base)
 
 
 def _lane_metrics(preds, yte, ytr, lanes):
@@ -399,35 +615,56 @@ def _train_rounds(lb: LaneBatch, rounds):
     and time STEADY STATE only: with rounds > 1 the clock restarts
     after round 0 (the JAX package's compile round; here the first
     round's allocations and first kernel loads), with rounds == 1 it is
-    included.  Returns (params, opt_state, losses [L, S] of the last
-    round, wall, timed_rounds)."""
+    included.  Returns (params, opt_state, sched_state, losses [L, S] of
+    the last round, wall, timed_rounds)."""
     params, opt_state, step_idx = lb.params, lb.opt_state, 0
+    sched = lb.sched_state
     timed_rounds, losses = rounds, None
     _sync(lb.device)
     t0 = time.perf_counter()
     for r in range(rounds):
-        params, opt_state, step_idx, losses = lb.round_fn(
-            params, opt_state, step_idx, lb.round_indices(r), lb.xtr,
-            lb.ytr, lb.lay)
+        if lb.impl is None:
+            params, opt_state, step_idx, losses = lb.round_fn(
+                params, opt_state, step_idx, lb.round_indices(r), lb.xtr,
+                lb.ytr, lb.lay)
+        else:
+            params, opt_state, step_idx, sched, losses = lb.round_fn(
+                params, opt_state, step_idx, lb.round_indices(r), lb.xtr,
+                lb.ytr, lb.lay, sched, lb.round_draws(r))
         if r == 0 and rounds > 1:
             _sync(lb.device)
             t0 = time.perf_counter()
             timed_rounds = rounds - 1
     _sync(lb.device)
-    return params, opt_state, losses, time.perf_counter() - t0, \
+    return params, opt_state, sched, losses, time.perf_counter() - t0, \
         timed_rounds
 
 
 def _trained(lb: LaneBatch):
     """Train ``lb`` and read back what the cells report: (f1s, accs,
-    last losses [L, S] on the host, wall, lane-steps a lane timed)."""
-    params, _, losses, wall, timed_rounds = _train_rounds(lb,
-                                                          lb.pcfg.rounds)
+    last losses [L, S] on the host, wall, lane-steps a lane timed, the
+    final engine state)."""
+    params, _, sched, losses, wall, timed_rounds = _train_rounds(
+        lb, lb.pcfg.rounds)
     preds = lb.predict_fn(params, lb.xte, lb.lay).cpu().numpy()
     f1s, accs = _lane_metrics(preds, lb.yte.cpu().numpy(),
                               lb.ytr.cpu().numpy(), lb.lanes)
     steps = timed_rounds * lb.pcfg.epochs * lb.n_batches
-    return f1s, accs, losses.cpu().numpy(), wall, steps
+    return f1s, accs, losses.cpu().numpy(), wall, steps, sched
+
+
+def _cell_telemetry(lb: LaneBatch, sched, sl) -> dict:
+    """A cell's fault and wire entries, summed over its lanes ``sl``:
+    the reference's cell keys."""
+    out = {}
+    if not lb.fault_none_only:
+        tel = lb.impl.telemetry(sched)
+        out["fault_telemetry"] = {k: int(np.sum(v[sl]))
+                                  for k, v in tel.items()}
+    if not lb.wire_none_only:
+        out["wire"] = {k: int(np.sum(v[sl])) for k, v in
+                       lb.impl.wire_telemetry(sched).items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -437,12 +674,14 @@ def run_cell(dataset, mode, n_clients, scfg: SweepConfig, device=None):
     """Train len(scfg.seeds) federations of one (dataset, mode,
     n_clients) cell as unpadded lanes of one round; what a multi-seed
     Session runs."""
-    for name, what in (("schedules", "schedule"), ("faults", "fault plan"),
-                       ("transforms", "transform"), ("obs", "obs level")):
+    for name, what, grid in (("schedules", "schedule", "schedule"),
+                             ("faults", "fault plan", "fault"),
+                             ("transforms", "transform", "wire"),
+                             ("obs", "obs level", "obs")):
         if len(getattr(scfg, name)) != 1:
             raise ValueError(
                 f"run_cell takes exactly one {what}; use "
-                f"run_padded_cells({name}=...) for {what} grids")
+                f"run_padded_cells({name}=...) for {grid} grids")
     _refuse_deferred_axes(scfg)
     n_features = get_config(arch_for(dataset)).in_features
     layouts = [PT.make_layout(dataset, n_features, n_clients, seed=s)
@@ -457,8 +696,8 @@ def run_cell(dataset, mode, n_clients, scfg: SweepConfig, device=None):
     lb = build_lane_batch(
         dataset, mode, dataclasses.replace(scfg, client_counts=(n_clients,)),
         device=device)
-    f1s, accs, losses, wall, steps = _trained(lb)
-    return {
+    f1s, accs, losses, wall, steps, sched = _trained(lb)
+    cell = {
         "dataset": dataset, "mode": mode, "n_clients": n_clients,
         "seeds": list(scfg.seeds),
         "f1_per_seed": f1s, "acc_per_seed": accs,
@@ -468,6 +707,12 @@ def run_cell(dataset, mode, n_clients, scfg: SweepConfig, device=None):
         "wall_s": wall,
         "steps_per_sec": steps * lb.n_lanes / max(wall, 1e-9),
     }
+    if not lb.fault_none_only:
+        cell["fault"] = lb.plans[0].spec
+    if not lb.wire_none_only:
+        cell["transform"] = lb.wires[0].spec
+    cell.update(_cell_telemetry(lb, sched, slice(None)))
+    return cell
 
 
 # ---------------------------------------------------------------------------
@@ -517,38 +762,67 @@ def run_padded_cells(dataset, mode, scfg, shard="auto", device=None):
     ``repro_torch.api.ExperimentSpec`` sharing one (dataset, mode)
     whose n_clients values form the count axis.
 
-    Returns {"cells": {n_clients: cell}, "round_traces": int, "lanes":
-    int, "devices": int, "wall_s": float, "schedules": ["sync"],
+    Returns {"cells": {key: cell}, "round_traces": int, "lanes": int,
+    "devices": int, "wall_s": float, "schedules": [...],
     "cells_per_sec": float, "steps_per_sec": float}, the JAX package's
-    schema.  Each cell has run_cell's keys plus "schedule"; wall_s is
-    the SHARED batch wall, each cell's steps_per_sec its lanes'
-    lane-steps over it (the cells sum to the batch's steps_per_sec).
+    schema: a sync-only fault-free transform-free batch keys its cells
+    by n_clients; a non-default schedule axis by "sched/n", a fault
+    axis by "fault/sched/n" (and adds "faults"), a transform axis by
+    "transform/fault/sched/n" (and adds "transforms").  Each cell has
+    run_cell's keys plus "schedule" (and "fault" with its
+    "fault_telemetry", "transform" with its "wire" bytes, summed over
+    its seeds); wall_s is the SHARED batch wall, each cell's
+    steps_per_sec its lanes' lane-steps over it (the cells sum to the
+    batch's steps_per_sec).
     ``round_traces`` has no compile behind it here: it is the number of
     round functions the batch built, 1.  shard: "auto" | False | int
     (``_lane_shards``)."""
     dataset, mode, scfg = _coerce_sweep_config(dataset, mode, scfg)
     counts, s = tuple(scfg.client_counts), len(scfg.seeds)
-    n_dev = _lane_shards(len(counts) * s, shard)
     lb = build_lane_batch(dataset, mode, scfg, device=device)
-    f1s, accs, losses, wall, steps = _trained(lb)
+    n_dev = _lane_shards(lb.n_lanes, shard)
+    f1s, accs, losses, wall, steps, sched = _trained(lb)
     cells = {}
-    for ci, nc in enumerate(counts):
-        sl = slice(ci * s, (ci + 1) * s)
-        cells[nc] = {
-            "dataset": dataset, "mode": mode, "n_clients": nc,
-            "schedule": "sync", "seeds": list(scfg.seeds),
-            "f1_per_seed": f1s[sl], "acc_per_seed": accs[sl],
-            "f1_mean": float(np.mean(f1s[sl])),
-            "f1_std": float(np.std(f1s[sl])),
-            "acc_mean": float(np.mean(accs[sl])),
-            "final_loss_mean": float(losses[sl, -1].mean()),
-            "wall_s": wall,
-            "steps_per_sec": steps * s / max(wall, 1e-9),
-        }
-    return {"cells": cells, "round_traces": 1, "lanes": lb.n_lanes,
-            "devices": n_dev, "wall_s": wall, "schedules": ["sync"],
-            "cells_per_sec": len(cells) / max(wall, 1e-9),
-            "steps_per_sec": steps * lb.n_lanes / max(wall, 1e-9)}
+    blocks = itertools.product(lb.wires, lb.plans, lb.scheds)
+    for bi, (wp, pl, sc) in enumerate(blocks):
+        for ci, nc in enumerate(counts):
+            lo = bi * lb.n_base + ci * s
+            sl = slice(lo, lo + s)
+            if not lb.wire_none_only:
+                ck = f"{wp.spec}/{pl.spec}/{sc.spec}/{nc}"
+            elif not lb.fault_none_only:
+                ck = f"{pl.spec}/{sc.spec}/{nc}"
+            elif len(lb.scheds) > 1 or not sc.is_sync:
+                ck = f"{sc.spec}/{nc}"
+            else:
+                ck = nc
+            cell = {
+                "dataset": dataset, "mode": mode, "n_clients": nc,
+                "schedule": sc.spec, "seeds": list(scfg.seeds),
+                "f1_per_seed": f1s[sl], "acc_per_seed": accs[sl],
+                "f1_mean": float(np.mean(f1s[sl])),
+                "f1_std": float(np.std(f1s[sl])),
+                "acc_mean": float(np.mean(accs[sl])),
+                "final_loss_mean": float(losses[sl, -1].mean()),
+                "wall_s": wall,
+                "steps_per_sec": steps * s / max(wall, 1e-9),
+            }
+            if not lb.fault_none_only:
+                cell["fault"] = pl.spec
+            if not lb.wire_none_only:
+                cell["transform"] = wp.spec
+            cell.update(_cell_telemetry(lb, sched, sl))
+            cells[ck] = cell
+    out = {"cells": cells, "round_traces": 1, "lanes": lb.n_lanes,
+           "devices": n_dev, "wall_s": wall,
+           "schedules": [sc.spec for sc in lb.scheds],
+           "cells_per_sec": len(cells) / max(wall, 1e-9),
+           "steps_per_sec": steps * lb.n_lanes / max(wall, 1e-9)}
+    if not lb.fault_none_only:
+        out["faults"] = [pl.spec for pl in lb.plans]
+    if not lb.wire_none_only:
+        out["transforms"] = [w.spec for w in lb.wires]
+    return out
 
 
 def run_grid(scfg: SweepConfig = SweepConfig(), shard=None, device=None):

@@ -2,7 +2,7 @@
 :class:`NullTracer`, the ``obs="none"`` stand-in whose every method is
 a no-op, so an instrumented call site costs an attribute lookup when
 tracing is off.  ``SpanTracer`` is not ported yet (ROADMAP.md, Queue 1
-item 4), so ``obs`` runs only at "none".
+item 4d, ``obs/``), so ``obs`` runs only at "none".
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ class NullTracer:
     def export(self, path: str):
         raise ValueError(
             "tracing is off (obs='none' builds a NullTracer); span "
-            "recording is not ported yet (ROADMAP.md, Queue 1 item 4)")
+            "recording is not ported yet (ROADMAP.md, Queue 1 item 4d, "
+            "obs/)")
 
     def summary(self) -> str:
         return "tracing off (obs='none')"

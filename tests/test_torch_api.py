@@ -206,8 +206,17 @@ def test_spec_normalization_and_replace():
     ("schedule", "stale_k:2"), ("fault", "crash:0.2"),
     ("transform", "int8"), ("obs", "basic")])
 def test_unported_stream_axes_refuse(field, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ExperimentSpec(dataset="titanic", **{field: value})
+    """Only obs still waits (Queue 1 item 4d); the schedule, fault and
+    transform axes run and canonicalize as the reference's."""
+    if field == "obs":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
+            ExperimentSpec(dataset="titanic", **{field: value})
+        return
+    spec = ExperimentSpec(dataset="titanic", **{field: value})
+    assert getattr(spec, field) == value
+    with pytest.raises(ValueError, match="devertifl"):
+        ExperimentSpec(dataset="titanic", mode="verticomb",
+                       **{field: value})
 
 
 # ---------------------------------------------------------------------------
@@ -485,9 +494,13 @@ def test_deferred_entry_points_name_their_queue_item():
         sess.server()
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         sess.serve([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
+        ExperimentSpec(**TINY, obs="full")
+    # a RetryPolicy runs now (repro_torch.faults); anything else is
+    # refused as the reference refuses it
+    with pytest.raises(TypeError, match="RetryPolicy"):
         sess.run(retry=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="RetryPolicy"):
         _cpu(_ckpt("/nonexistent", 1)).resume(retry=object())
 
 

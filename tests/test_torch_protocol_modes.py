@@ -132,9 +132,19 @@ def test_set_fedavg():
     ("schedule", "stale_k:2"), ("fault", "crash:0.2"),
     ("transform", "int8"), ("obs", "basic")])
 def test_unported_plans_refuse(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeVertiFL(ProtocolConfig(**TITANIC, **{field: value}),
-                  device="cpu")
+    """Only obs is still refused (ROADMAP.md, Queue 1 item 4d); the
+    schedule, fault and transform plans run, in devertifl mode only."""
+    if field == "obs":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DeVertiFL(ProtocolConfig(**TITANIC, **{field: value}),
+                      device="cpu")
+        return
+    fed = DeVertiFL(ProtocolConfig(**TITANIC, **{field: value}),
+                    device="cpu")
+    assert fed.init_sched_state()
+    with pytest.raises(ValueError, match="devertifl"):
+        DeVertiFL(ProtocolConfig(**{**TITANIC, "mode": "verticomb"},
+                                 **{field: value}), device="cpu")
 
 
 def test_unknown_lane_names_the_options():

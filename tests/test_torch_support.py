@@ -51,6 +51,14 @@ _REFERENCE_MODULES = {
     "baselines": "repro.core.baselines",
     "checkpoint": "repro.checkpoint",
     "sweep": "repro.core.sweep",
+    "schedule": "repro.schedule",
+    "schedule_engine": "repro.schedule.engine",
+    "faults": "repro.faults",
+    "faults_engine": "repro.faults.engine",
+    "wire": "repro.wire",
+    "codecs": "repro.wire.codecs",
+    "spec": "repro.api.spec",
+    "session": "repro.api.session",
 }
 
 
@@ -170,3 +178,132 @@ def test_reference_leaves_modules_as_it_found_them():
     added = {m for m in set(sys.modules) - before
              if m == "repro" or m.startswith("repro.")}
     assert not added, sorted(added)
+
+
+class RefDraws:
+    """A round's draws backed by the reference's own: its participation
+    coins (``participation_mask``'s per-client bernoulli), fault coins
+    (``_fault_coins``) and ``dp_noise`` on the reference's round key
+    ``rkey``, for ``n`` client slots.  The port's impls take it in
+    place of ``CounterDraws.round(r)``, as the replays take the
+    reference's inits and batch indices."""
+
+    def __init__(self, ref, rkey, n):
+        self.ref, self.rkey, self.n = ref, rkey, n
+
+    def coins(self, tag, kind, p):
+        jax, jnp = self.ref.jax, self.ref.jnp
+        p = float(torch.as_tensor(p).reshape(-1)[0])
+        fe = self.ref.faults_engine
+        if tag == fe.FAULT_TAG:
+            c = fe._fault_coins(self.rkey, kind, self.n, p)
+        elif tag == self.ref.schedule_engine.PARTICIPATION_TAG:
+            pkey = jax.random.fold_in(self.rkey, tag)
+            c = jax.vmap(lambda i: jax.random.bernoulli(
+                jax.random.fold_in(pkey, i), p))(
+                    jnp.arange(self.n, dtype=jnp.int32))
+        else:           # a federation-wide coin (a custom plan's)
+            c = jnp.full((self.n,), jax.random.bernoulli(
+                jax.random.fold_in(self.rkey, tag), p))
+        return torch.as_tensor(np.array(c, np.float32))
+
+    def normal(self, tag, step, shape):
+        jax = self.ref.jax
+        key = jax.random.fold_in(jax.random.fold_in(self.rkey, tag),
+                                 int(step))
+        return torch.as_tensor(np.array(self.ref.codecs.dp_noise(
+            key, self.n, tuple(shape))))
+
+    def lane_key(self, tag):
+        return np.asarray(self.ref.jax.random.fold_in(self.rkey, tag))
+
+
+def reference_engine_run(ref, **kw):
+    """``reference_run`` for a federation with an engine impl (a
+    schedule, fault plan or transform): the reference's scanned rounds
+    driven one by one, so the carried state comes back too.  Returns
+    also each round's key (what ``RefDraws`` takes) and the fault and
+    wire telemetry of the final state."""
+    jax = ref.jax
+    fed = ref.protocol.DeVertiFL(ref.protocol.ProtocolConfig(**kw))
+    init_key, loop_key = ref.protocol.train_keys(
+        jax.random.PRNGKey(fed.pcfg.seed))
+    params = fed.init_params(init_key)
+    init = to_np(params)
+    opt_state = jax.vmap(fed.opt.init)(params)
+    step = jax.numpy.zeros((), jax.numpy.int32)
+    sched = fed.init_sched_state()
+    keys, idx, losses = [], [], []
+    for r in range(fed.pcfg.rounds):
+        rkey = jax.random.fold_in(loop_key, r)
+        keys.append(rkey)
+        idx.append(np.asarray(fed._perms(rkey)))
+        params, opt_state, step, sched, lr = fed._round(
+            params, opt_state, step, sched, rkey, fed._xtr, fed._ytr,
+            fed._lay)
+        losses.append(np.asarray(lr))
+    return types.SimpleNamespace(
+        fed=fed, init=init, idx=idx, keys=keys, losses=losses,
+        params=to_np(params), sched=to_np(sched),
+        fault=fed.fault_telemetry(sched), wire=fed.wire_telemetry(sched),
+        preds=np.asarray(fed.predict(params, fed.xte)))
+
+
+def port_engine_run(ref, ref_run, device="cpu", **kw):
+    """Replay ``reference_engine_run``'s rounds in the port from its
+    inits, batch indices and draws (``RefDraws``).  Returns (federation,
+    per-round losses, final params, final engine state)."""
+    from repro_torch.core.protocol import DeVertiFL, ProtocolConfig
+    from repro_torch.interop import params_from_numpy
+    fed = DeVertiFL(ProtocolConfig(**kw), device=device)
+    params = params_from_numpy(ref_run.init, device)
+    opt_state = fed.opt.init(params)
+    sched, step, losses = fed.init_sched_state(), 0, []
+    n = fed.pcfg.padded_clients
+    for rkey, round_idx in zip(ref_run.keys, ref_run.idx, strict=True):
+        params, opt_state, step, sched, lr = fed.run_round(
+            params, opt_state, step, round_idx, sched,
+            RefDraws(ref, rkey, n))
+        losses.append(lr.cpu().numpy())
+    return fed, losses, params, sched
+
+
+def assert_engine_replays(ref_run, fed, losses, params, sched):
+    """Per-step losses within LOSS_RTOL, predictions and fault and wire
+    counters exactly equal; returns the largest relative loss
+    difference seen."""
+    worst = 0.0
+    for ours, theirs in zip(losses, ref_run.losses, strict=True):
+        np.testing.assert_allclose(ours, theirs, rtol=LOSS_RTOL, atol=0)
+        worst = max(worst, float(np.max(np.abs(ours - theirs)
+                                        / np.abs(theirs))))
+    n = fed.pcfg.n_clients
+    preds = fed.predict(params, fed.xte).cpu().numpy()[:n]
+    np.testing.assert_array_equal(preds, ref_run.preds[:n])
+    for ours, theirs in ((fed.fault_telemetry(sched), ref_run.fault),
+                         (fed.wire_telemetry(sched), ref_run.wire)):
+        assert (ours is None) == (theirs is None)
+        if ours is not None:
+            assert {k: int(v) for k, v in ours.items()} == \
+                {k: int(v) for k, v in theirs.items()}
+    return worst
+
+
+def engine_traj(device="cpu", **kw):
+    """Train the port's ``DeVertiFL(ProtocolConfig(**kw))``, returning
+    every step's loss (one array), the final metrics, the federation
+    and its final engine state."""
+    from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
+                                           round_generator,
+                                           train_generators)
+    fed = DeVertiFL(ProtocolConfig(**kw), device=device)
+    seed = fed.pcfg.seed
+    params, opt_state = fed.start(fed.init_params(train_generators(seed)[0]))
+    sched, step, losses = fed.init_sched_state(), 0, []
+    draws = fed.draws()
+    for r in range(fed.pcfg.rounds):
+        params, opt_state, step, sched, lr = fed.run_round(
+            params, opt_state, step, fed.perms(round_generator(seed, r)),
+            sched, draws.round(r))
+        losses.append(lr.cpu().numpy())
+    return (np.concatenate(losses), fed.evaluate(params), fed, sched)

@@ -502,7 +502,7 @@ def test_grid_validation_errors_are_the_references(ref, case):
 
 
 # ---------------------------------------------------------------------------
-# the axes still to be ported
+# the engine's lane axes: only obs still waits (Queue 1 item 4d)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("field,value", [
     ("schedules", ("sync", "stale_k:2")), ("faults", ("crash:0.2",)),
@@ -518,11 +518,22 @@ def test_deferred_sweep_axes_name_their_queue_item(field, value):
              lambda: SW.run_grid(scfg, device="cpu"),
              lambda: run_cell("titanic", "devertifl", 2, dataclasses.replace(
                  scfg, **{field: value[-1:]}), device="cpu")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            call()
     axis = {"schedules": "schedules", "faults": "faults",
             "transforms": "transforms"}.get(field)
-    kw = {axis: value} if axis else {"obs": value[0]}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        spec_grid(datasets=("titanic",), **kw)
+    if axis is None:
+        for call in calls:
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 4d"):
+                call()
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
+            spec_grid(datasets=("titanic",), obs=value[0])
+        return
+    # the schedule, fault and transform axes run: one lane a value
+    assert build_lane_batch("titanic", "devertifl", scfg,
+                            device="cpu").n_lanes == len(value)
+    out = run_padded_cells("titanic", "devertifl", scfg, device="cpu")
+    assert len(out["cells"]) == len(value)
+    specs = spec_grid(datasets=("titanic",), modes=("devertifl",),
+                      client_counts=(2,), seeds=(0,), rounds=1, epochs=1,
+                      first_layer="slice", **{axis: value})
+    assert [getattr(sp, axis[:-1]) for sp in specs] == list(value)
