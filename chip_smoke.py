@@ -103,7 +103,45 @@ Phases, each printing one JSON line:
               bank_vs_splitnn, 2 of its 20 rounds) in devertifl and
               splitnn mode, each rerun bitwise, with steps/s and
               spec_hash
- 10. sweep    Fig. 3's paper grid (benchmarks/figures.py --paper: mnist,
+ 10. obs      the obs layer at the api phase's config: a 2-round
+              obs="full" Session bitwise its obs="none" run (params,
+              metrics, round losses), launching vfl_matmul once a step
+              and an evaluation (the count set to 0 just before, read
+              just after), its series' shapes and positivity, its
+              SpanTracer export parsed as JSON with one round span a
+              round; obs="basic" leaves the per-client series at zero;
+              under the adversity combination the staleness, bytes and
+              quarantine series equal the inner layers' telemetry; an
+              obs x seed lane grid (none, basic, full x seeds 0, 1) in
+              one round, lanes (none, 0), (basic, 0), (full, 0), (full,
+              1) bitwise their standalone runs, series included;
+              SpanTracer.profile_to's torch.profiler trace names
+              vfl_matmul; steps/s and kernels a step (torch.profiler)
+              with the taps beside without; a planted fault (a tap that
+              writes into the released stack) must fail the bitwise
+              check
+ 11. serve_fed
+              federated serving over the api phase's trained
+              federation: the predict path's stages (first layer,
+              hidden layers, head, exchange, argmax) on 64-row chunks
+              bitwise the whole test set's; 4,096 requests from the
+              mnist test rows
+              (numpy seed 0), a quarter on 256 hot entities, each
+              client's slice offered in shuffled order interleaved with
+              step() through Session.server(max_slots=64, cache=512,
+              queue_cap=256, overflow="evict_oldest"), vfl_matmul
+              launched once a step (the count set to 0 just before,
+              read just after); every completed result equal to
+              Session.predict on its row, exactly; the same requests at
+              8 and 1,024 slots the same; cache hits equal recomputes;
+              every pressure entry at the cap; a topk+int8 Session's
+              cache holds packed payloads whose hits are bitwise its
+              fresh serves; prometheus_text parses (cumulative
+              buckets); a planted fault (a cache returning another
+              entity's stack) must fail the equality check;
+              requests/s, p50/p99 latency, host and device ms a step
+              and the busy share (torch.profiler over 50 steps)
+ 12. sweep    Fig. 3's paper grid (benchmarks/figures.py --paper: mnist,
               clients 2..10 x seeds 0, 1, 2, 70,000 samples, 2 rounds
               of 1 epoch) through repro_torch.api.run_grid: 27 lanes
               padded to 10 slots (a client axis of 270) in one round,
@@ -119,7 +157,7 @@ Phases, each printing one JSON line:
               the grid's cell 5 against a multi-seed Session (F1 within
               0.002, final loss within LANE_RTOL); lane-steps/s,
               cells/s, busy share, peak GB, F1 per cell
- 11. adversity
+ 13. adversity
               the round engine's schedule, fault and wire layers at the
               train phase's configuration (mnist, 5 clients, 70,000
               samples, kernel lane): one round of each of sync,
@@ -146,8 +184,8 @@ Phases, each printing one JSON line:
               1), (partial:0.5, 2) bitwise their standalone runs) and a
               fault x transform grid the same way; steps/s of each
               variant beside sync's, lane-steps/s
- 12. profile  where a training step's time goes (torch.profiler)
- 13. serve    serves qwen2-7b at full width and depth (28 layers,
+ 14. profile  where a training step's time goes (torch.profiler)
+ 15. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -157,7 +195,7 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
- 14. serve_moe
+ 16. serve_moe
               after qwen2-7b's memory is released, serves
               deepseek-moe-16b at full width and depth (28 layers, 64
               routed experts top-6 + 2 shared, random bf16 weights drawn
@@ -172,7 +210,7 @@ Phases, each printing one JSON line:
               that check; the logits against a prefill routed by the
               plain version; then one decode step and one prefill
               under torch.profiler
- 15. serve_rwkv
+ 17. serve_rwkv
               after deepseek-moe-16b's memory is released, serves
               rwkv6-1.6b at full width and depth (24 layers, random bf16
               weights drawn on the card) with the same 12 requests'
@@ -187,7 +225,7 @@ Phases, each printing one JSON line:
               prefill(prompt[:n + 1]), on the logits and every layer's
               state, which a decode from a zeroed state must fail; then
               one decode step and one prefill under torch.profiler
- 16. serve_hybrid
+ 18. serve_hybrid
               after rwkv6-1.6b's memory is released, serves
               jamba-v0.1-52b at full width and cut depth (16 of its 32
               layers: 103.15 GB of bf16 weights do not fit the card's
@@ -216,6 +254,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1954,6 +1993,550 @@ def phase_api(train_out, pcfg) -> None:
           "reduced": "bank_vs_splitnn (benchmarks/table2.py): 2 of its "
                      "20 rounds",
           "phase_s": time.perf_counter() - t_phase})
+    return sess, rr
+
+
+# ---------------------------------------------------------------------------
+# the obs layer at the api phase's configuration: taps bitwise obs-free,
+# the series, an obs lane grid, spans, the profiler
+OBS_GRID_LEVELS = ("none", "basic", "full")
+OBS_GRID_SEEDS = (0, 1)
+# the grid's lanes held to their standalone runs: (level, seed)
+OBS_LANES = (("none", 0), ("basic", 0), ("full", 0), ("full", 1))
+OBS_PROFILE_SAMPLES = 4000
+OBS_TRACE_SAMPLES = 1000    # profile_to's round: a trace of 15 steps
+
+
+def _check_series(name, ser, rounds, n) -> None:
+    """tests/test_obs.py's shapes and positivity of a full series."""
+    from repro_torch.obs import SERIES_KEYS
+    check(set(ser) == set(SERIES_KEYS), f"{name}: series keys {sorted(ser)}")
+    check(ser["loss"].shape == (rounds,)
+          and ser["exchange_norm"].shape == (rounds, n)
+          and ser["grad_norm"].shape == (rounds, n),
+          f"{name}: series shapes {[v.shape for v in ser.values()]}")
+    check(bool((ser["loss"] > 0).all()) and bool(np.isfinite(
+        ser["loss"]).all()), f"{name}: loss series {ser['loss']}")
+    check(bool((ser["exchange_norm"] > 0).any())
+          and bool((ser["grad_norm"] > 0).any()),
+          f"{name}: norm series all zero")
+
+
+def _obs_profile(pcfg, obs) -> dict:
+    """One round at fewer samples under torch.profiler: kernels a step
+    and the busy share at ``obs``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.protocol import (DeVertiFL, round_generator,
+                                           train_generators)
+    fed = DeVertiFL(pcfg.replace(n_samples=OBS_PROFILE_SAMPLES, obs=obs,
+                                 rounds=1), device=DEVICE)
+    params, opt_state = fed.start(fed.init_params(
+        train_generators(pcfg.seed)[0]))
+    idx = fed.perms(round_generator(pcfg.seed, 0))
+    fed.run_round(params, opt_state, 0, idx, fed.init_sched_state(),
+                  fed.draws().round(0))
+    _dev_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed.run_round(params, opt_state, 0, idx, fed.init_sched_state(),
+                      fed.draws().round(0))
+        _dev_sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _profile_rows(prof, wall_ms, idx.shape[0])
+    return {k: rows[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                 "device_busy_share", "kernels_per_step",
+                                 "by_kind")}
+
+
+def _profile_to_reading(pcfg) -> dict:
+    """``SpanTracer.profile_to`` around one round at fewer samples: the
+    torch.profiler trace it writes must name vfl_matmul's kernel, and the
+    tracer holds its ``torch_profile`` span."""
+    import os
+    import tempfile
+    from repro_torch.core.protocol import DeVertiFL, round_generator
+    from repro_torch.obs import SpanTracer
+    fed = DeVertiFL(pcfg.replace(n_samples=OBS_TRACE_SAMPLES, rounds=1,
+                                 epochs=1), device=DEVICE)
+    params, opt_state = fed.start(fed.init_params(torch.Generator()))
+    tracer = SpanTracer()
+    with tempfile.TemporaryDirectory() as tmp:
+        with tracer.profile_to(tmp, device=DEVICE):
+            fed.run_round(params, opt_state, 0,
+                          fed.perms(round_generator(0, 0)))
+            _dev_sync()
+        path = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    hits = sorted(n for n in names if "vfl_matmul" in n)
+    check(bool(hits), "profile_to: the trace names no vfl_matmul kernel")
+    spans = [r["name"] for r in tracer.to_records()]
+    check(spans == ["torch_profile"], f"profile_to spans {spans}")
+    return {"trace_bytes": size, "events": len(events),
+            "vfl_matmul_names": hits[:4]}
+
+
+def _obs_grid(pcfg) -> dict:
+    """One round of the obs x seed lane batch (one vfl_matmul launch a
+    lane-batched step, counted), each of OBS_LANES bitwise its
+    standalone DeVertiFL round, losses and series; the "none" lanes'
+    series all zero."""
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.protocol import (DeVertiFL, round_generator,
+                                           train_generators)
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    scfg = SW.SweepConfig(client_counts=(pcfg.n_clients,),
+                          seeds=OBS_GRID_SEEDS, rounds=1, epochs=1,
+                          n_samples=pcfg.n_samples,
+                          batch_size=pcfg.batch_size, obs=OBS_GRID_LEVELS)
+    lb = SW.build_lane_batch(pcfg.dataset, "devertifl", scfg, device=DEVICE)
+    idx, draws = lb.round_indices(0), lb.round_draws(0)
+    vfl_matmul_clients.launches = 0
+    _dev_sync()
+    t0 = time.perf_counter()
+    _, _, _, sched, losses = lb.round_fn(lb.params, lb.opt_state, 0, idx,
+                                         lb.xtr, lb.ytr, lb.lay,
+                                         lb.sched_state, draws)
+    _dev_sync()
+    wall = time.perf_counter() - t0
+    launches = vfl_matmul_clients.launches
+    check(launches == lb.n_batches,
+          f"obs grid: {launches} vfl_matmul launches for {lb.n_batches} "
+          "lane-batched steps")
+    losses, series = losses.cpu(), lb.impl.obs_series(sched)
+    out = {}
+    for level, s in OBS_LANES:
+        li = OBS_GRID_LEVELS.index(level) * len(OBS_GRID_SEEDS) + \
+            OBS_GRID_SEEDS.index(s)
+        fed = DeVertiFL(pcfg.replace(seed=s, rounds=1, epochs=1, obs=level),
+                        device=DEVICE)
+        params, opt_state = fed.start(fed.init_params(
+            train_generators(s)[0]))
+        _, _, _, st, solo = fed.run_round(
+            params, opt_state, 0, fed.perms(round_generator(s, 0)),
+            fed.init_sched_state(), fed.draws().round(0))
+        check(torch.equal(losses[li], solo.cpu()),
+              f"obs grid: lane {li} ({level}, seed {s}) is not its "
+              "standalone run, bitwise")
+        mine = {k: v[li] for k, v in series.items()}
+        if level == "none":
+            check(all(not v.any() for v in mine.values()),
+                  "obs grid: a none lane recorded a series")
+        else:
+            theirs = fed.obs_series(st)
+            differ = [k for k in theirs
+                      if not np.array_equal(mine[k], theirs[k])]
+            check(not differ, f"obs grid: lane {li} ({level}, seed {s})'s "
+                  f"series {differ} are not its standalone run's, bitwise")
+        out[f"{level}/{s}"] = "bitwise"
+    return {"lanes": lb.n_lanes, "steps": lb.n_batches, "wall_s": wall,
+            "lane_steps_per_s": lb.n_lanes * lb.n_batches / wall,
+            "vfl_matmul_launches": launches, "vs_standalone": out}
+
+
+def phase_obs(kernel_row, sess, rr) -> None:
+    """The obs layer on the card at the api phase's configuration (mnist
+    784 -> 3x10 -> 10, 5 clients, 70,000 samples, kernel lane): a
+    2-round obs="full" Session bitwise the api phase's obs="none" run
+    (params, metrics, round losses), launching vfl_matmul once a step
+    and an evaluation, its series' shapes and positivity, its spans
+    exported as JSON with one round span a round; obs="basic" leaves
+    the per-client series at zero; under the adversity combination the
+    staleness, bytes and quarantine series equal the inner layers' own
+    telemetry; an obs x seed lane grid, lanes bitwise their standalone
+    runs; ``profile_to``'s trace names vfl_matmul; kernels a step and
+    steps/s with the taps beside without; a planted fault (a tap that
+    writes into the released stack) must fail the bitwise check."""
+    import tempfile
+    import repro_torch.obs.taps as OT
+    from repro_torch.api import build
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    t_phase = time.perf_counter()
+    spec, pcfg = sess.spec, sess.federation.pcfg
+    n, rounds = spec.n_clients, spec.rounds
+    full_sess = build(spec.replace(obs="full"), device=DEVICE)
+    full_sess.federation        # built outside the launch count
+    vfl_matmul_clients.launches = 0
+    full = full_sess.run()
+    launches = vfl_matmul_clients.launches
+    steps = full.telemetry.steps
+    check(launches == steps + rounds + 1,
+          f"obs full: {launches} vfl_matmul launches, expected "
+          f"{steps + rounds + 1}")
+    check(_same_run(full, rr), "obs='full' is not obs='none', bitwise")
+    ser = full.telemetry.series
+    _check_series("obs full", ser, rounds, n)
+    check(not (ser["staleness"].any() or ser["encoded_bytes"].any()
+               or ser["quarantined"].any()),
+          "obs full: sync recorded staleness, bytes or quarantines")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(full_sess.tracer.export(f"{tmp}/trace.json")) as f:
+            spans = [e["name"] for e in json.load(f)["traceEvents"]]
+    check(spans.count("round") == rounds and "build" in spans
+          and spans.count("eval") == rounds + 1,
+          f"obs full: exported spans {spans}")
+
+    basic = build(spec.replace(obs="basic", rounds=1), device=DEVICE).run()
+    bser = basic.telemetry.series
+    check(bool((bser["loss"] > 0).all())
+          and not bser["exchange_norm"].any() and not bser["grad_norm"].any(),
+          f"obs basic: per-client series {bser}")
+    check(np.array_equal(bser["loss"], ser["loss"][:1]),
+          "obs basic: round 1's loss is not obs full's")
+
+    combo = build(spec.replace(obs="full", rounds=1, **ADV_COMBO),
+                  device=DEVICE).run()
+    cser = combo.telemetry.series
+    _check_series("obs combination", cser, 1, n)
+    depth = int(ADV_COMBO["schedule"].split(":")[1])
+    check(bool((cser["staleness"] == depth).all()),
+          f"obs combination: staleness {cser['staleness']}")
+    check(bool((cser["encoded_bytes"] > 0).all())
+          and int(cser["encoded_bytes"][-1]) ==
+          combo.telemetry.wire["encoded_bytes"],
+          f"obs combination: bytes {cser['encoded_bytes']} vs "
+          f"{combo.telemetry.wire}")
+    check(int(cser["quarantined"][-1]) == combo.telemetry.fault["quarantined"],
+          f"obs combination: quarantines {cser['quarantined']} vs "
+          f"{combo.telemetry.fault}")
+
+    grid = _obs_grid(pcfg)
+    prof = {obs: _obs_profile(pcfg, obs) for obs in ("none", "full")}
+    profile_to = _profile_to_reading(pcfg)
+
+    # the planted fault: a tap that writes into the released stack
+    select = OT.ObsImpl.select
+
+    def writing(self, state, h_now):
+        h_ref, st = select(self, state, h_now)
+        h_ref.mul_(1.0 + 2.0 ** -8)
+        return h_ref, st
+    OT.ObsImpl.select = writing
+    try:
+        planted = build(spec.replace(obs="full"), device=DEVICE).run()
+    finally:
+        OT.ObsImpl.select = select
+    check(not _same_run(planted, rr),
+          "obs: a tap writing into h_ref passed the bitwise check")
+    kernel_row["obs"] = {"session_2_rounds": launches,
+                         "grid_round": grid["vfl_matmul_launches"]}
+    emit({"phase": "obs", "spec_hash": full.spec_hash,
+          "steps": steps, "vfl_matmul_launches": launches,
+          "steps_per_s": {"none": rr.telemetry.steps_per_sec,
+                          "full": full.telemetry.steps_per_sec},
+          "full_over_none": full.telemetry.steps_per_sec
+          / rr.telemetry.steps_per_sec,
+          "bitwise_vs_none": True, "series": {
+              k: v.tolist() for k, v in ser.items()
+              if k in ("loss", "quarantined", "encoded_bytes", "staleness")},
+          "combination_series": {k: v.tolist() for k, v in cser.items()
+                                 if k in ("quarantined", "encoded_bytes",
+                                          "staleness")},
+          "spans": {s: spans.count(s) for s in sorted(set(spans))},
+          "span_summary": full_sess.tracer.summary().splitlines(),
+          "grid": grid, "profile": prof,
+          "kernels_per_step_full_over_none":
+              prof["full"]["kernels_per_step"]
+              / prof["none"]["kernels_per_step"],
+          "profile_to": profile_to,
+          "planted_writing_tap": "fails the bitwise check",
+          "phase_s": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------------
+# federated serving on the api phase's trained federation
+SERVE_REQUESTS = 4096
+SERVE_HOT = 256             # hot entities, 25% of the requests
+SERVE_HOT_SHARE = 0.25
+SERVE_SLOTS = 64
+SERVE_CACHE = 512
+SERVE_QUEUE_CAP = 256
+SERVE_WINDOW = 512          # requests announced before their slices arrive
+SERVE_PROFILE_STEPS = 50
+_PROM_SAMPLE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]+="[^"]*"\})? \S+$'
+
+
+def _serve_requests(n_test, n, seed=0):
+    """(rows, entities) of ``n`` requests over the test set (numpy
+    ``seed``): a SERVE_HOT_SHARE of them on SERVE_HOT hot entities, the
+    rest on random rows (entity = row)."""
+    rng = np.random.default_rng(seed)
+    hot_rows = rng.choice(n_test, SERVE_HOT, replace=False)
+    is_hot = rng.random(n) < SERVE_HOT_SHARE
+    hot = rng.integers(0, SERVE_HOT, n)
+    rows = np.where(is_hot, hot_rows[hot], rng.integers(0, n_test, n))
+    entities = [f"hot{h}" if b else f"row{r}"
+                for b, h, r in zip(is_hot, hot, rows)]
+    return rows, entities
+
+
+def _stream(srv, fed, rows, entities, seed) -> None:
+    """Announce the requests a window at a time; deliver each window's
+    client slices in one shuffled interleaving with a step() every
+    SERVE_SLOTS requests' worth of slices; drain."""
+    from repro_torch.api import ServeRequest, split_features
+    rng = np.random.default_rng(seed)
+    every = SERVE_SLOTS * fed.pcfg.n_clients
+    offers = []
+    for i, (r, e) in enumerate(zip(rows, entities)):
+        srv.submit(ServeRequest(uid=i, entity_id=e))
+        sl = split_features(fed.layout, fed.xte[r])
+        offers += [(i, c, sl[c]) for c in sl]
+        if (i + 1) % SERVE_WINDOW and i + 1 < len(rows):
+            continue
+        for j, k in enumerate(rng.permutation(len(offers))):
+            srv.offer(*offers[k])
+            if (j + 1) % every == 0:
+                srv.step()
+        offers = []
+    srv.run()
+
+
+def _serve_mismatches(report, want, rows) -> int:
+    """Completed requests whose predictions differ from predict()'s
+    column of their row (``want`` {row: [n_live] predictions})."""
+    return sum(not np.array_equal(p, want[int(rows[uid])])
+               for uid, p in report.results.items())
+
+
+def _prom_ok(text, report) -> bool:
+    """Every sample line is ``name{labels} value``, the latency buckets
+    cumulative, +Inf == _count == completed."""
+    import re
+    samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    buckets = [int(ln.rsplit(" ", 1)[1]) for ln in samples
+               if "_bucket{" in ln]
+    count = [int(ln.rsplit(" ", 1)[1]) for ln in samples
+             if ln.startswith("repro_serve_latency_seconds_count ")]
+    return (all(re.match(_PROM_SAMPLE, ln) for ln in samples)
+            and all(float(ln.rsplit(" ", 1)[1]) >= 0 for ln in samples)
+            and buckets == sorted(buckets) and bool(buckets)
+            and buckets[-1] == count[0] == report.counters["completed"])
+
+
+def _wrong_entity_cache(capacity):
+    """The planted fault: an ExchangeCache whose hits return the stack
+    stored for the NEXT entity in its order."""
+    from repro_torch.api import ExchangeCache
+
+    class WrongEntityCache(ExchangeCache):
+        def lookup(self, key):
+            keys = list(self._store)
+            if key in self._store and len(keys) > 1:
+                self.hits += 1
+                return self._store[keys[(keys.index(key) + 1) % len(keys)]]
+            return super().lookup(key)
+    return WrongEntityCache(capacity)
+
+
+def _predict_stages(sess, rows_canonical) -> dict:
+    """The predict path's stages (first layer, each hidden layer, head,
+    exchange, argmax) of the Session's params on canonical-order rows."""
+    from repro_torch.core import protocol as P
+    from repro_torch.core.exchange import hidden_output_exchange
+    fed, params = sess.federation, sess._last_params
+    model, lay = fed.model, fed._lay
+    first = P.make_first_layer_fn(model, fed.pcfg, fed.layout, fed.device)
+    out = {}
+    with torch.no_grad():
+        h = out["first_layer"] = first(params, rows_canonical, lay)
+        for i in range(1, model.n_hidden):
+            h = out[f"hidden_{i}"] = model.forward_from(
+                h, start=i, upto=i + 1, params=params)
+        h = out["head"] = model.head(h, params=params)
+        h = out["exchange"] = hidden_output_exchange(
+            h, differentiable=False, client_mask=lay.client_mask)
+        out["argmax"] = torch.argmax(h, dim=-1)
+    return out
+
+
+def _stage_reading(sess, n_rows) -> dict:
+    """Elements of each predict stage that differ between the whole test
+    set at once (vfl_matmul's ``ring`` kernel, cuBLAS at M = 14,000) and
+    SERVE_SLOTS-row chunks of its first ``n_rows`` (the ``wave`` kernel
+    at a serve step's M)."""
+    x = sess.federation._xte
+    whole = _predict_stages(sess, x)
+    chunks = [_predict_stages(sess, x[i:i + SERVE_SLOTS])
+              for i in range(0, n_rows, SERVE_SLOTS)]
+    return {k: int((torch.cat([c[k] for c in chunks], dim=1)
+                    != whole[k][:, :n_rows]).sum()) for k in whole}
+
+
+def _serve_profile(sess, fed, rows, entities) -> dict:
+    """SERVE_PROFILE_STEPS full-pool steps under torch.profiler, after
+    warm ones: host and device ms a step, the busy share, kernels a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import ServeRequest, split_features
+    srv = sess.server(max_slots=SERVE_SLOTS, cache=SERVE_CACHE)
+    n = SERVE_SLOTS * (SERVE_PROFILE_STEPS + 4)
+    for i in range(n):
+        r = rows[i % len(rows)]
+        srv.submit(ServeRequest(uid=i, entity_id=f"p{i}",
+                                slices=split_features(fed.layout,
+                                                      fed.xte[r])))
+    for _ in range(4):
+        srv.step()
+    _dev_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            srv.step()
+        _dev_sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows_ = _profile_rows(prof, wall_ms, SERVE_PROFILE_STEPS)
+    return {k: rows_[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                  "device_busy_share", "kernels_per_step",
+                                  "by_kind", "top_device_kernels")}
+
+
+def phase_serve_fed(kernel_row, sess) -> None:
+    """Federated serving on the card over the api phase's trained
+    federation (mnist, 5 clients, kernel lane): the predict path's
+    stages at a serve step's M (64-row chunks) bitwise the whole test
+    set's; SERVE_REQUESTS requests
+    from the test rows (numpy seed 0), a quarter on SERVE_HOT hot
+    entities, each client's slice offered in shuffled order interleaved
+    with step() through ``Session.server(max_slots=64, cache=512,
+    queue_cap=256, overflow="evict_oldest")``, vfl_matmul launched once
+    a step (the count set to 0 just before, read just after); every
+    completed result equal to ``Session.predict`` on its row, exactly;
+    the same requests at 8 and 1,024 slots the same; cache hits equal
+    recomputes; every pressure entry at the cap; a topk+int8 Session's
+    cache holds packed payloads whose hits are bitwise its fresh serves;
+    ``prometheus_text`` parses; a planted fault (a cache returning
+    another entity's stack) must fail the equality check; requests/s,
+    latency, host and device ms a step."""
+    from repro_torch.api import (ServeRequest, build, split_features)
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    from repro_torch.obs import prometheus_text
+    from repro_torch.wire import WirePayload
+    t_phase = time.perf_counter()
+    fed = sess.federation
+    check(fed.pcfg.exchange_at == -1, "serve_fed: the stage check reads "
+          "the logits exchange")
+    stages = _stage_reading(sess, SERVE_REQUESTS // 4)
+    check(not any(stages.values()),
+          f"serve_fed: the predict path's stages differ between 64-row "
+          f"chunks and the whole test set: {stages}")
+    rows, entities = _serve_requests(len(fed.xte), SERVE_REQUESTS)
+    used = np.unique(rows)
+    _dev_sync()
+    t0 = time.perf_counter()
+    pred = sess.predict(fed.xte[used]).cpu().numpy()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    want = {int(r): pred[:, j] for j, r in enumerate(used)}
+
+    srv = sess.server(max_slots=SERVE_SLOTS, cache=SERVE_CACHE,
+                      queue_cap=SERVE_QUEUE_CAP, overflow="evict_oldest")
+    vfl_matmul_clients.launches = 0
+    _stream(srv, fed, rows, entities, seed=1)
+    _dev_sync()
+    launches = vfl_matmul_clients.launches
+    report = srv.report()
+    c = report.counters
+    check(launches == c["steps"] > 0,
+          f"serve_fed: {launches} vfl_matmul launches for {c['steps']} steps")
+    check(c["completed"] + c["evicted"] == SERVE_REQUESTS
+          and c["rejected"] == c["waiting"] == 0,
+          f"serve_fed: counters {c}")
+    check(bool(srv.pressure_log) and all(
+        p == SERVE_QUEUE_CAP for p in srv.pressure_log),
+        f"serve_fed: pressure log {sorted(set(srv.pressure_log))}")
+    bad = _serve_mismatches(report, want, rows)
+    first_bad = next(((uid, int(rows[uid]), p.tolist(),
+                       want[int(rows[uid])].tolist())
+                      for uid, p in report.results.items()
+                      if not np.array_equal(p, want[int(rows[uid])])), None)
+    check(bad == 0, f"serve_fed: {bad} of {c['completed']} served results "
+          f"differ from predict() (uid, row, served, predicted: "
+          f"{first_bad})")
+    cached = {t["uid"] for t in report.telemetry if t["cached"]}
+    check(report.cache["hits"] > 0 and len(cached) > 0,
+          f"serve_fed: cache {report.cache}")
+    fresh = {}
+    for uid, p in report.results.items():
+        if uid not in cached:
+            fresh.setdefault(entities[uid], p)
+    check(all(np.array_equal(report.results[u], fresh[entities[u]])
+              for u in cached if entities[u] in fresh),
+          "serve_fed: a cache hit differs from its entity's recompute")
+    text = prometheus_text(report)
+    check(_prom_ok(text, report), "serve_fed: prometheus_text does not parse")
+
+    reqs = [ServeRequest(uid=i, entity_id=e, slices=split_features(
+        fed.layout, fed.xte[r])) for i, (r, e) in enumerate(zip(rows,
+                                                                entities))]
+    by_slots = {}
+    for slots in (8, 1024):
+        rep = sess.serve(reqs, max_slots=slots, cache=SERVE_CACHE)
+        check(rep.counters["completed"] == SERVE_REQUESTS
+              and _serve_mismatches(rep, want, rows) == 0
+              and all(np.array_equal(rep.results[u], p)
+                      for u, p in report.results.items()),
+              f"serve_fed: {slots} slots do not give the 64-slot results")
+        by_slots[slots] = {"steps": rep.counters["steps"],
+                           "requests_per_s": rep.throughput_rps,
+                           "latency_ms": rep.latency_ms}
+
+    wrong = sess.server(max_slots=SERVE_SLOTS,
+                        cache=_wrong_entity_cache(SERVE_CACHE),
+                        queue_cap=SERVE_QUEUE_CAP, overflow="evict_oldest")
+    _stream(wrong, fed, rows[:2 * SERVE_WINDOW],
+            entities[:2 * SERVE_WINDOW], seed=1)
+    check(wrong.cache.hits > 0 and _serve_mismatches(
+        wrong.report(), want, rows) > 0,
+        "serve_fed: a cache serving another entity's stack passed the "
+        "equality check")
+
+    # a topk+int8 federation: packed payloads in the cache
+    wire = build(sess.spec.replace(transform="topk:0.5+int8", rounds=1),
+                 device=DEVICE)
+    wire.run()
+    hot = [i for i, e in enumerate(entities) if e.startswith("hot")]
+    first = {}
+    for i in hot:
+        first.setdefault(entities[i], rows[i])
+    wsrv = wire.server(max_slots=SERVE_SLOTS, cache=SERVE_CACHE)
+    for k, (e, r) in enumerate(first.items()):
+        wsrv.submit(ServeRequest(uid=f"f{k}", entity_id=e, slices=(
+            split_features(wire.federation.layout, fed.xte[r]))))
+    wfresh = wsrv.run()
+    packed = all(isinstance(v, WirePayload)
+                 for v in wsrv.cache._store.values())
+    for k, e in enumerate(first):
+        wsrv.submit(ServeRequest(uid=f"h{k}", entity_id=e))
+    whits = wsrv.run()
+    check(packed and whits.cache["hits"] == len(first) and all(
+        np.array_equal(whits.results[f"h{k}"], wfresh.results[f"f{k}"])
+        for k in range(len(first))),
+        "serve_fed: topk+int8 cache hits are not their fresh serves, "
+        "bitwise, or the cache holds unpacked stacks")
+    nbytes = [v.nbytes for v in wsrv.cache._store.values()]
+
+    prof = _serve_profile(sess, fed, rows, entities)
+    kernel_row["serve_fed"] = launches
+    emit({"phase": "serve_fed", "requests": SERVE_REQUESTS,
+          "hot_entities": SERVE_HOT, "max_slots": SERVE_SLOTS,
+          "cache": report.cache, "queue_cap": SERVE_QUEUE_CAP,
+          "counters": c, "pressure_events": len(srv.pressure_log),
+          "requests_per_s": report.throughput_rps,
+          "latency_ms": report.latency_ms, "steps": c["steps"],
+          "vfl_matmul_launches": launches, "served_vs_predict": "equal",
+          "cache_hits_vs_recompute": "equal", "predict_ms": predict_ms,
+          "stage_diffs_64_rows_vs_whole": stages,
+          "by_slots": by_slots, "step_profile": prof,
+          "wire": {"transform": "topk:0.5+int8", "entities": len(first),
+                   "packed": packed, "hits_bitwise_fresh": True,
+                   "payload_bytes_mean": float(np.mean(nbytes))},
+          "prometheus_lines": len(text.splitlines()),
+          "planted_wrong_entity_cache": "fails the equality check",
+          "phase_s": time.perf_counter() - t_phase})
 
 
 # ---------------------------------------------------------------------------
@@ -3288,7 +3871,9 @@ def main() -> None:
     pcfg = ProtocolConfig(dataset="mnist", n_clients=5, n_samples=70000,
                           rounds=2, epochs=1, batch_size=64)
     train_out = phase_train(kernel_row, pcfg)
-    phase_api(train_out, pcfg)
+    sess, rr = phase_api(train_out, pcfg)
+    phase_obs(kernel_row, sess, rr)
+    phase_serve_fed(kernel_row, sess)
     phase_sweep(kernel_row, train_out["steps_per_s"])
     phase_adversity(kernel_row, pcfg)
     phase_profile(pcfg.replace(n_samples=4000))

@@ -22,9 +22,13 @@ the registries: :func:`register_dataset`, :func:`register_mode`,
                               client_counts=(2, 3), seeds=(0, 1)))
 
 and takes ``device="cpu"`` as ``build`` does.  A spec's ``schedule``,
-``fault`` and ``transform`` run the round engine's layers
-(``repro_torch.schedule``, ``.faults``, ``.wire``); ``obs`` and the
-serving names wait for ROADMAP.md, Queue 1 items 4d and 5.
+``fault``, ``transform`` and ``obs`` run the round engine's layers
+(``repro_torch.schedule``, ``.faults``, ``.wire``, ``.obs``).  A trained
+federated Session serves requests whose features arrive split across
+clients (``Session.server``/``serve``, ``repro_torch.serving``)::
+
+    report = sess.serve([ServeRequest(uid=i, slices=split_features(
+        sess.federation.layout, row)) for i, row in enumerate(rows)])
 """
 from repro_torch.api.spec import ExperimentSpec, HASH_EXCLUDE  # noqa: F401
 from repro_torch.api.modes import (  # noqa: F401
@@ -40,6 +44,10 @@ from repro_torch.data.registry import (  # noqa: F401
 )
 from repro_torch.schedule import (  # noqa: F401
     Schedule, get_schedule, register_schedule, schedule_names,
+)
+from repro_torch.serving.federated import (  # noqa: F401
+    ExchangeCache, FederatedServer, ServeReport, ServeRequest,
+    split_features,
 )
 
 

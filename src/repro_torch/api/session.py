@@ -8,6 +8,8 @@ registry) behind a uniform surface:
   session.predict()  class predictions from the trained params
   session.resume()   continue from the latest intact checkpoint in
                      ``spec.checkpoint_dir``
+  session.server()   a ``FederatedServer`` over the trained params
+  session.serve()    serve a batch of requests through it
 
 ``device`` is an execution argument, not a spec field: None means
 CUDA (``resolve_device``), and nothing falls back to the CPU.
@@ -38,8 +40,10 @@ stream.  With a fault plan, ``run(retry="auto")`` arms the divergence
 watchdog (``repro_torch.faults.RetryPolicy``): a round whose losses
 diverge is rolled back and retried from a reseeded stream.
 
-Still waiting: ``server``/``serve`` (ROADMAP.md, Queue 1 item 5) and
-``obs`` levels other than "none" (item 4d).
+A spec's ``obs`` level other than "none" arms the metric taps (their
+series land in ``RunResult.telemetry.series``) and a ``SpanTracer``
+(``session.tracer``) with spans for build, round, eval and checkpoint,
+and for a server's request lifecycle.
 """
 from __future__ import annotations
 
@@ -62,11 +66,11 @@ from repro_torch.checkpoint import (CheckpointCorruptError,
                                     load_entry, save_checkpoint)
 from repro_torch.core import sweep as SW
 from repro_torch.core.baselines import SplitNN, SplitNNConfig
-from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig, deferred,
+from repro_torch.core.protocol import (DeVertiFL, ProtocolConfig,
                                        resolve_device, round_generator,
                                        train_generators)
 from repro_torch.faults import DivergenceError, RetryPolicy, diverged
-from repro_torch.obs import NullTracer, Telemetry
+from repro_torch.obs import NullTracer, SpanTracer, Telemetry
 from repro_torch.tree import tree_map
 
 # the reference's schema: 5 adds the unified ``telemetry`` record, from
@@ -117,6 +121,48 @@ def _stream_stamp(spec) -> str:
     if spec.obs != "none":
         ident = f"{ident}|obs={spec.obs}"
     return _schedule_hash(ident)
+
+
+# obs series slots in the carried sched state (ObsImpl sits outermost,
+# so they live at the top level) -- all [rounds, ...]: their leading
+# axis is the WRITING spec's rounds, which a resume may change
+_OBS_SERIES = ("s_loss", "s_exn", "s_gn", "s_quar", "s_bytes",
+               "s_stale")
+
+
+def _obs_series_like(sched_like, directory, step):
+    """A like-tree whose obs series leaves take the CHECKPOINT's round
+    capacity (axis 0) so the structured load accepts them; any other
+    shape difference is left for load_checkpoint's own error."""
+    out = dict(sched_like)
+    for k in _OBS_SERIES:
+        if k not in out:
+            continue
+        saved = load_entry(directory, step, f"sched/{k}", name=_CKPT_NAME)
+        have = out[k]
+        if saved is not None and saved.shape != tuple(have.shape) \
+                and saved.shape[1:] == tuple(have.shape)[1:]:
+            out[k] = torch.zeros(saved.shape, dtype=have.dtype,
+                                 device=have.device)
+    return out
+
+
+def _obs_series_refit(sched, sched_like):
+    """Refit restored series rows to this spec's rounds: zero-pad the
+    tail (rows the resumed run will write) or drop trailing rows that
+    were never written (a checkpoint at round r has rows [0, r), and
+    resume refuses r > spec.rounds)."""
+    out = dict(sched)
+    for k in _OBS_SERIES:
+        if k not in out:
+            continue
+        arr, rows = out[k], sched_like[k].shape[0]
+        if arr.shape[0] > rows:
+            out[k] = arr[:rows]
+        elif arr.shape[0] < rows:
+            out[k] = torch.cat([arr, arr.new_zeros(
+                (rows - arr.shape[0],) + tuple(arr.shape[1:]))])
+    return out
 
 
 @lru_cache(maxsize=1)
@@ -226,7 +272,9 @@ class Session:
         self._fed = None
         self._runner = None
         self._last_params = None
-        self.tracer = NullTracer()      # obs="none"
+        # host-side span tracer: armed with the taps (obs != "none"),
+        # the no-op NullTracer otherwise
+        self.tracer = SpanTracer() if spec.obs != "none" else NullTracer()
 
     # ------------------------------------------------------------------
     @property
@@ -237,9 +285,11 @@ class Session:
             raise ValueError(f"mode {self.spec.mode!r} has no DeVertiFL "
                              "federation (it is not a federated mode)")
         if self._fed is None:
-            self._fed = DeVertiFL(
-                _protocol_config(self.spec, self.mode.internal),
-                device=self.device)
+            with self.tracer.span("build", cat="setup",
+                                  dataset=self.spec.dataset):
+                self._fed = DeVertiFL(
+                    _protocol_config(self.spec, self.mode.internal),
+                    device=self.device)
         return self._fed
 
     def _sync(self) -> None:
@@ -254,6 +304,8 @@ class Session:
         self._last_params = params
         if not isinstance(telemetry, Telemetry):
             telemetry = Telemetry.from_timings(telemetry)
+        if self.tracer.active:
+            telemetry.spans = self.tracer.to_records()
         return RunResult(spec=self.spec, spec_hash=self.spec.spec_hash,
                          git_sha=git_sha(), metrics=metrics,
                          history=history,
@@ -376,8 +428,17 @@ class Session:
                 like = dict(like_base)
                 if got_sched is not None:
                     like["schedule_hash"] = want_sched
+                if spec.obs != "none":
+                    # the series' capacity is the WRITER's rounds:
+                    # load into the saved shape and refit below -- a
+                    # series row a round is not trajectory state
+                    like["sched"] = _obs_series_like(
+                        like["sched"], spec.checkpoint_dir, cand)
                 state = load_checkpoint(spec.checkpoint_dir, cand, like,
                                         name=_CKPT_NAME)
+                if spec.obs != "none":
+                    state["sched"] = _obs_series_refit(
+                        state["sched"], like_base["sched"])
                 step = cand
                 break
             except CheckpointCorruptError as e:
@@ -427,13 +488,55 @@ class Session:
             self._runner = self.mode.runner(self.spec)
         return self._runner.predict(params, x)
 
-    def server(self, params=None, **server_kw):
-        """Federated serving (the reference's ``FederatedServer``)."""
-        raise deferred("Session.server()", 5, "serving/federated.py")
+    def server(self, params=None, *, max_slots=8, queue_cap=None,
+               cache=128, overflow="reject"):
+        """A :class:`repro_torch.serving.FederatedServer` over this
+        spec's trained params on the Session's device:
+        continuous-batched vertical inference where each request's
+        features arrive split across clients (``submit``/``offer``),
+        batched into ``max_slots`` predict slots advanced by one step,
+        with a hot-entity exchange cache (LRU of ``cache`` entries keyed
+        by spec_hash + entity id; pass an ExchangeCache to share one
+        across servers, or ``None`` to disable) and bounded-queue
+        admission (``queue_cap`` + ``overflow``: "reject" |
+        "evict_oldest").
+
+        Serving is bit for bit ``predict()`` per request -- invariant to
+        arrival order, slot count, batch composition and cache state
+        (tests/test_torch_federated_serving.py).  Like ``evaluate``,
+        serving uses the synchronous evaluation exchange whatever the
+        training ``schedule``/``fault`` plan."""
+        from repro_torch.serving.federated import FederatedServer
+        if self.mode.kind != "federated":
+            raise ValueError(
+                f"serve() runs federated modes; mode {self.spec.mode!r}"
+                " has no multi-party inference path")
+        params = params if params is not None else self._last_params
+        if params is None:
+            if len(self.spec.seeds) > 1:
+                raise ValueError(
+                    "multi-seed cells do not retain per-seed params; "
+                    "run a single-seed session (seeds=(s,)) for "
+                    "serve(), or pass params= explicitly")
+            raise ValueError("serve() before run()/resume(): pass "
+                             "params= or train first")
+        fed = self.federation
+        return FederatedServer(fed.model, fed.pcfg, fed.layout, params,
+                               spec_hash=self.spec.spec_hash,
+                               max_slots=max_slots, queue_cap=queue_cap,
+                               cache=cache, overflow=overflow,
+                               tracer=self.tracer, device=self.device)
 
     def serve(self, requests, params=None, **server_kw):
-        """Batch serving over :meth:`server`."""
-        raise deferred("Session.serve()", 5, "serving/federated.py")
+        """Batch convenience over :meth:`server`: submit every
+        :class:`repro_torch.serving.ServeRequest` in arrival order,
+        drain the slot pool, and return the
+        :class:`repro_torch.serving.ServeReport` (per-request
+        predictions + latency/cache/scheduler telemetry)."""
+        srv = self.server(params, **server_kw)
+        for req in requests:
+            srv.submit(req)
+        return srv.run()
 
     # ------------------------------------------------------------------
     def _retry_policy(self, retry) -> Optional[RetryPolicy]:
@@ -515,7 +618,8 @@ class Session:
                 snapshot = _copy_state(
                     (params, opt_state, step_idx, sched_state))
             if spec.eval_every and (r + 1) % spec.eval_every == 0:
-                ev = fed.evaluate(params)
+                with self.tracer.span("eval", cat="eval", round=r):
+                    ev = fed.evaluate(params)
                 ev["round"] = r
                 ev["round_losses"] = (losses.cpu().numpy()
                                       if round_losses is None
@@ -524,18 +628,21 @@ class Session:
                 history.append(ev)
             if spec.checkpoint_every and \
                     (r + 1) % spec.checkpoint_every == 0:
-                save_checkpoint(
-                    spec.checkpoint_dir, r + 1,
-                    {"params": params, "opt_state": opt_state,
-                     "step_idx": np.asarray(step_idx, np.int32),
-                     "sched": sched_state,
-                     "resume_hash": _hash_array(spec.resume_hash),
-                     "schedule_hash": _hash_array(_stream_stamp(spec))},
-                    name=_CKPT_NAME)
+                with self.tracer.span("checkpoint", cat="ckpt", round=r):
+                    save_checkpoint(
+                        spec.checkpoint_dir, r + 1,
+                        {"params": params, "opt_state": opt_state,
+                         "step_idx": np.asarray(step_idx, np.int32),
+                         "sched": sched_state,
+                         "resume_hash": _hash_array(spec.resume_hash),
+                         "schedule_hash": _hash_array(
+                             _stream_stamp(spec))},
+                        name=_CKPT_NAME)
             r += 1
         self._sync()
         wall = time.perf_counter() - t0
-        final = fed.evaluate(params)
+        with self.tracer.span("eval", cat="eval", round=-1):
+            final = fed.evaluate(params)
         steps = (spec.rounds - start_round) * spec.epochs * fed.n_batches
         telemetry = Telemetry(wall_s=wall, steps=steps,
                               steps_per_sec=steps / max(wall, 1e-9))
@@ -575,7 +682,8 @@ class Session:
         telemetry = Telemetry(wall_s=cell["wall_s"],
                               steps_per_sec=cell["steps_per_sec"],
                               fault=cell.get("fault_telemetry"),
-                              wire=cell.get("wire"))
+                              wire=cell.get("wire"),
+                              series=cell.get("obs_series"))
         return self._result(metrics, [], None, telemetry)
 
     def _splitnn_config(self, seed) -> SplitNNConfig:
@@ -739,8 +847,10 @@ def run_grid(specs, shard=None, device=None):
     non-default schedule axis inserts the schedule into the keys
     ("ds/mode/sched/n"), a non-default fault axis prepends the plan
     ("ds/mode/fault/sched/n") and a non-default transform axis the
-    transform ("ds/mode/transform/fault/sched/n").  ``shard`` overrides
-    the specs' shard policy."""
+    transform ("ds/mode/transform/fault/sched/n").  A grid at an obs
+    level other than "none" keys its cells as the sweep does
+    ("ds/mode/obs/transform/fault/sched/n"; the reference's lookup
+    misses those keys).  ``shard`` overrides the specs' shard policy."""
     cells, compare = {}, {}
     for (ds, mode), group in _grid_groups(specs):
         counts, schedules, faults, transforms = _group_axes(group)
@@ -750,7 +860,10 @@ def run_grid(specs, shard=None, device=None):
             shard=group[0].shard if shard is None else shard,
             device=device)
         for s in group:
-            if transforms != ("none",):
+            if s.obs != "none":
+                ck = (f"{s.obs}/{s.transform}/{s.fault}/{s.schedule}/"
+                      f"{s.n_clients}")
+            elif transforms != ("none",):
                 ck = (f"{s.transform}/{s.fault}/{s.schedule}/"
                       f"{s.n_clients}")
             elif faults != ("none",):

@@ -22,11 +22,10 @@ the same lane in both packages carries the same id, letter for letter:
                       different executions and keep different hashes.
 
 No pytree registration: nothing here is traced.  ``schedule``,
-``fault`` and ``transform`` are validated against their registries and
-canonicalized as the reference does (``"stale_k"`` -> ``"stale_k:1"``),
-so a spec hashes as the reference's; their defaults are dropped from
-the hash.  ``obs`` accepts only "none" until ROADMAP.md, Queue 1 item
-4d ports it.
+``fault``, ``transform`` and ``obs`` are validated against their
+registries and canonicalized as the reference does (``"stale_k"`` ->
+``"stale_k:1"``), so a spec hashes as the reference's; the first three
+drop their defaults from the hash, and ``obs`` is excluded from it.
 """
 from __future__ import annotations
 
@@ -39,14 +38,17 @@ from typing import Optional, Tuple, Union
 from repro_torch.api.modes import get_mode
 from repro_torch.configs import get_config
 from repro_torch.core.protocol import (AXIS_DEFAULTS, FIRST_LAYERS,
-                                       auto_first_layer, refuse_unported)
+                                       auto_first_layer)
 from repro_torch.data import registry as DR
 from repro_torch.faults import get_fault_plan
+from repro_torch.obs import get_obs_plan
 from repro_torch.schedule import get_schedule
 from repro_torch.wire import get_wire_plan
 
 # knobs that change what is *recorded*, not what is *computed* -- kept
 # out of spec_hash so observation settings don't fork experiment ids
+# ("obs" by construction: obs="full" trajectories are bitwise obs="none"
+# trajectories)
 HASH_EXCLUDE = ("eval_every", "checkpoint_dir", "checkpoint_every",
                 "shard", "obs")
 
@@ -75,7 +77,10 @@ class ExperimentSpec:
     schedule: str = "sync"
     fault: str = "none"
     transform: str = "none"
-    obs: str = "none"               # only "none" runs (Queue 1 item 4d)
+    # the obs level (repro_torch.obs): "none" | "basic" | "full" | a
+    # register_obs name; non-none levels arm the metric taps and the
+    # host span tracer, devertifl federations only
+    obs: str = "none"
     max_clients: Optional[int] = None   # pad client axis with dead slots
     shard: Union[str, bool, int] = "auto"   # grid lanes: "auto"|False|int
     n_samples: Optional[int] = None     # dataset size override (speed)
@@ -126,7 +131,13 @@ class ExperimentSpec:
                 "(the transformed dataflow is the forward "
                 f"HiddenOutputExchange); mode {self.mode!r} supports "
                 "transform='none' only")
-        refuse_unported(self)
+        op = get_obs_plan(self.obs)              # raises w/ options
+        object.__setattr__(self, "obs", op.spec)
+        if not op.is_none and mode.internal != "devertifl":
+            raise ValueError(
+                f"obs level {op.spec!r} requires mode='devertifl' "
+                "(the taps ride the exchange engine's scan carry); "
+                f"mode {self.mode!r} supports obs='none' only")
         if self.first_layer == "auto":
             # resolve "auto" NOW so the spec (and its hash) records the
             # lane that actually runs

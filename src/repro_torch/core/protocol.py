@@ -12,7 +12,7 @@ Pieces, each named after its counterpart in the JAX package:
   make_step_fn         one optimizer step for all clients (per mode)
   make_perm_fn         epoch shuffles drawn from a torch.Generator
   make_round_fn        a round: every batch of every epoch, then FedAvg
-  resolve_engine       the schedule -> fault -> wire impl chain
+  resolve_engine       the schedule -> fault -> wire -> obs impl chain
   make_h_all_fn        per-client activations at the exchange point
   make_predict_fn      per-client inference with the evaluation exchange
 
@@ -58,16 +58,15 @@ round r draws its batches from ``round_generator(seed, r)`` alone (the
 reference's ``fold_in(loop_key, r)``), so a run resumed at round r
 replays rounds r.. without replaying the rounds before.
 
-The round engine's schedule, fault and wire layers
-(``repro_torch.schedule``, ``repro_torch.faults``, ``repro_torch.wire``):
-a non-sync ``schedule`` or a non-none ``fault`` or ``transform`` (all
-devertifl only) wraps the round in an impl chain, schedule -> fault ->
-wire (``resolve_engine``), whose state the round threads through:
-``round_start`` with the round's draws (``repro_torch.core.draws``),
-``select`` every step, ``fedavg_mask`` and ``round_end``.  Literal
-"sync" with every plan at "none" keeps the sync path untouched, bit
-for bit.  ``obs`` other than "none" is not ported yet (ROADMAP.md,
-Queue 1 item 4d) and raises NotImplementedError.
+The round engine's schedule, fault, wire and obs layers
+(``repro_torch.schedule``, ``.faults``, ``.wire``, ``.obs``): a
+non-sync ``schedule`` or a non-none ``fault``, ``transform`` or ``obs``
+(all devertifl only) wraps the round in an impl chain, schedule ->
+fault -> wire -> obs (``resolve_engine``), whose state the round
+threads through: ``round_start`` with the round's draws
+(``repro_torch.core.draws``), ``select`` and the obs taps every step,
+``fedavg_mask`` and ``round_end``.  Literal "sync" with every plan at
+"none" keeps the sync path untouched, bit for bit.
 """
 from __future__ import annotations
 
@@ -89,6 +88,8 @@ from repro_torch.faults import RESEED_TAG, get_fault_plan, make_fault_impl
 from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
 from repro_torch.metrics import accuracy, f1_score
 from repro_torch.models.mlp_model import PaperMLP
+from repro_torch.obs.registry import get_obs_plan
+from repro_torch.obs.taps import make_obs_impl
 from repro_torch.optim import adam
 from repro_torch.registry import Registry
 from repro_torch.schedule import (get_schedule, make_sched_step_fn,
@@ -119,8 +120,8 @@ class ProtocolConfig:
     # ("sync", "stale_k:2", "partial:0.5[:det]", "double_buffer",
     # "stale_k:4+partial:0.5"), a fault plan ("none", "crash:0.2[:dur]",
     # "straggle:0.5:2", "corrupt:0.05[:scale]", '+'-joined) and a wire
-    # transform ("none", "topk:0.5", "int8", "dp:0.1", '+'-joined).
-    # obs runs only at "none" (ROADMAP.md, Queue 1 item 4d).
+    # transform ("none", "topk:0.5", "int8", "dp:0.1", '+'-joined) and
+    # an obs level ("none", "basic", "full").
     schedule: str = "sync"
     fault: str = "none"
     transform: str = "none"
@@ -147,26 +148,8 @@ ENGINES = ("scan", "python")
 MODES = ("devertifl", "non_federated", "verticomb")
 
 
-def deferred(what, item, name) -> NotImplementedError:
-    """The error an entry point raises for what ROADMAP.md's Queue 1
-    item ``item`` (``name``) will port."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
-        f"Queue 1 item {item} ({name})")
-
-
-def refuse_unported(cfg) -> None:
-    """Raise unless ``cfg``'s obs level is "none", the only one the port
-    runs so far."""
-    if cfg.obs != "none":
-        raise NotImplementedError(
-            f"obs={cfg.obs!r} is not ported to repro_torch yet (only "
-            "obs='none'); see ROADMAP.md, Queue 1 item 4d (obs/)")
-
-
 def check_config(pcfg) -> None:
-    """Refuse what this slice of the port does not run."""
-    refuse_unported(pcfg)
+    """Refuse an unknown engine or mode."""
     if pcfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {pcfg.engine!r}; engines: "
                          f"{ENGINES}")
@@ -268,16 +251,16 @@ def resolve_schedule(pcfg, model, n_train, device):
 
 
 def resolve_engine(pcfg, model, n_train, device):
-    """pcfg.schedule + pcfg.fault + pcfg.transform -> (Schedule, impl).
-    With ``fault="none"`` and ``transform="none"`` this IS
-    :func:`resolve_schedule`, so literal sync keeps its path.  A
-    non-none plan (devertifl only) wraps the schedule impl in the fault
-    layer, then the wire layer (schedule -> fault -> wire: wire
-    outermost, so it transforms what the inner layers buffer and
-    screen); literal sync is first promoted to a depth-0 ring impl
-    (``stale_k:0``, bitwise sync) so the wrappers have hooks to ride.
-    ``obs`` is refused by ``check_config`` (ROADMAP.md, Queue 1 item
-    4d)."""
+    """pcfg.schedule + pcfg.fault + pcfg.transform + pcfg.obs ->
+    (Schedule, impl).  With ``fault``, ``transform`` and ``obs`` at
+    "none" this IS :func:`resolve_schedule`, so literal sync keeps its
+    path.  A non-none plan (devertifl only) wraps the schedule impl in
+    the fault layer, then the wire layer, then the metric taps
+    (schedule -> fault -> wire -> obs: wire outermost of the machinery,
+    so it transforms what the inner layers buffer and screen; obs
+    outermost of all, so it observes exactly what is released); literal
+    sync is first promoted to a depth-0 ring impl (``stale_k:0``,
+    bitwise sync) so the wrappers have hooks to ride."""
     sched, impl = resolve_schedule(pcfg, model, n_train, device)
     n, bs = pcfg.padded_clients, min(pcfg.batch_size, n_train)
     width = exchange_width(model, pcfg.exchange_at)
@@ -299,6 +282,14 @@ def resolve_engine(pcfg, model, n_train, device):
                 f"transform {wire.spec!r} requires mode='devertifl'; "
                 f"mode {pcfg.mode!r} supports transform='none' only")
         impl = make_wire_impl(wire, promoted(impl), n, bs, width, device)
+    op = get_obs_plan(pcfg.obs)
+    if not op.is_none:
+        if pcfg.mode != "devertifl":
+            raise ValueError(
+                f"obs level {op.spec!r} requires mode='devertifl'; "
+                f"mode {pcfg.mode!r} supports obs='none' only")
+        impl = make_obs_impl(op, promoted(impl), n, bs, width,
+                             pcfg.rounds, device)
     return sched, impl
 
 
@@ -802,8 +793,11 @@ class DeVertiFL:
         return None if tel is None else tel(sched_state)
 
     def obs_series(self, sched_state):
-        """Per-round metric series: None (obs="none")."""
-        return None
+        """The per-round metric series the obs taps recorded in the
+        carried state (``repro_torch.obs``), as numpy arrays, or None
+        when obs="none"."""
+        ser = getattr(self._impl, "obs_series", None)
+        return None if ser is None else ser(sched_state)
 
     def draws(self, seed=None) -> CounterDraws:
         """The coin and noise source of this federation's slots at
@@ -844,7 +838,8 @@ class DeVertiFL:
             raise ValueError(
                 "this federation carries engine state (schedule "
                 f"{self.pcfg.schedule!r}, fault {self.pcfg.fault!r}, "
-                f"transform {self.pcfg.transform!r}): pass "
+                f"transform {self.pcfg.transform!r}, obs "
+                f"{self.pcfg.obs!r}): pass "
                 "sched_state= (init_sched_state() to start)")
         if not isinstance(idx, torch.Tensor):
             idx = torch.tensor(np.asarray(idx), dtype=torch.int64)

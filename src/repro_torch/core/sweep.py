@@ -1,5 +1,5 @@
-"""Seeds x client counts x schedules x fault plans x transforms as
-lanes of one batched round: the port of ``repro.core.sweep``.
+"""Seeds x client counts x schedules x fault plans x transforms x obs
+levels as lanes of one batched round: the port of ``repro.core.sweep``.
 
 Grid semantics
 --------------
@@ -46,26 +46,27 @@ A dead slot gets relu(bias) in all three.  "auto" resolves as
 registered custom first layer is refused.  A masked lane reproduces the
 standalone runs bit for bit on the CPU.
 
-Schedule, fault and transform lanes
------------------------------------
-``SweepConfig.schedules``, ``faults`` and ``transforms`` are lane axes
-too, as in the reference: every (transform, fault, schedule) value
-repeats the same (count, seed) base lanes -- same data, layouts, inits
-and batch order -- transform-major, then fault-major, then
-schedule-major.  ONE engine impl serves every lane (one ring sized to
-the largest k, one straggler ring to the largest delay), and the lane
-batch's state holds each lane's plan: per-client leaves on every slot
-([L*max_c, ...] on their client axis), per-lane plan scalars [L],
-broadcast to the lane's slots (``repro_torch.schedule.engine``).  Each
+Schedule, fault, transform and obs lanes
+----------------------------------------
+``SweepConfig.schedules``, ``faults``, ``transforms`` and ``obs`` are
+lane axes too, as in the reference: every (obs, transform, fault,
+schedule) value repeats the same (count, seed) base lanes -- same data,
+layouts, inits and batch order -- obs-major, then transform-major,
+fault-major and schedule-major.  ONE engine impl serves every lane (one
+ring sized to the largest k, one straggler ring to the largest delay,
+the taps at the highest obs level), and the lane batch's state holds
+each lane's plan: per-client leaves on every slot ([L*max_c, ...] on
+their client axis), per-lane plan scalars [L], broadcast to the lane's
+slots (``repro_torch.schedule.engine``); the obs level gates and the
+per-lane series are [L] and [L, R] (``repro_torch.obs.taps``).  Each
 lane draws its coins and noise from its own seed and slot numbers
 (``repro_torch.core.draws``), so a lane is bitwise its standalone
-federation.  As in the reference, ``double_buffer`` cannot share an
-axis with other schedules and custom plans are refused in lanes.
+federation, its obs series included.  As in the reference,
+``double_buffer`` cannot share an axis with other schedules and custom
+plans are refused in lanes.
 
 Devices: the port runs a lane batch on one device, so ``shard`` can only
-be 1 there (``_lane_shards``).  Not ported yet: the obs lane axis
-(ROADMAP.md, Queue 1 item 4d); anything but "none" raises
-``NotImplementedError``.
+be 1 there (``_lane_shards``).
 """
 from __future__ import annotations
 
@@ -84,13 +85,14 @@ from repro_torch.core.draws import CounterDraws
 from repro_torch.core.exchange import fedavg
 from repro_torch.core.partition import LayoutArrays
 from repro_torch.core.protocol import (FIRST_LAYERS, ProtocolConfig,
-                                       arch_for, deferred, exchange_width,
+                                       arch_for, exchange_width,
                                        make_perm_fn, make_predict_fn,
                                        make_sched_round_fn, make_step_fn,
                                        resolve_device, resolve_first_layer,
                                        round_generator, train_generators)
 from repro_torch.data import registry as DR
 from repro_torch.faults import get_fault_plan, make_fault_impl
+from repro_torch.obs import get_obs_plan, make_obs_impl
 from repro_torch.schedule import (get_schedule, make_sched_step_fn,
                                   make_schedule_impl, promote_sync,
                                   stack_lane_states)
@@ -122,14 +124,10 @@ class SweepConfig:
     schedules: Sequence[str] = ("sync",)
     faults: Sequence[str] = ("none",)
     transforms: Sequence[str] = ("none",)
-    # only "none" runs here (ROADMAP.md, Queue 1 item 4d)
+    # the obs lane axis (repro_torch.obs levels; the gates are per-lane
+    # state): observation-only, a non-none lane's trajectory is bitwise
+    # its "none" twin's; custom obs impls cannot ride a lane axis
     obs: Sequence[str] = ("none",)
-
-
-def _refuse_deferred_axes(scfg) -> None:
-    axis = tuple(scfg.obs)
-    if axis != ("none",):
-        raise deferred(f"a sweep's obs={axis!r} axis", "4d", "obs/")
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +260,58 @@ def _stacked_wire_state(impl, wires, plans, scheds, n_base,
             kw = {"wire": wp} if fault_none_only else {"wire": wp,
                                                        "plan": pl}
             blocks += [(impl.init_state(sc, **kw), n_base) for sc in scheds]
+    return stack_lane_states(impl, blocks)
+
+
+def _sweep_obs(scfg, mode, model, n_clients, n_train, impl, device):
+    """Parse scfg.obs into (obss, impl, none_only).  A none-only axis
+    hands the schedule/fault/wire impl back untouched.  Mixed obs lanes
+    share ONE ObsImpl built at the highest stacked level (tap work
+    above an impl's level is not computed; lower lanes gate it off with
+    zeros); custom obs impls are refused."""
+    if not scfg.obs:
+        raise ValueError("obs must name at least one obs level")
+    obss = tuple(get_obs_plan(o) for o in scfg.obs)
+    if len(obss) == 1 and obss[0].is_none:
+        return obss, impl, True
+    if mode != "devertifl":
+        raise ValueError(
+            f"obs levels beyond 'none' require mode='devertifl' sweep "
+            f"cells, got mode {mode!r}")
+    if any(o.custom is not None for o in obss):
+        raise ValueError(
+            "custom obs impls are not supported in sweep lanes (their "
+            "impls may close over per-federation statics the lane "
+            "vmap cannot vary); run them as standalone sessions")
+    bs = min(scfg.batch_size, n_train)
+    width = exchange_width(model, scfg.exchange_at)
+    top = max(obss, key=lambda o: o.level)
+    impl = make_obs_impl(top, promote_sync(impl, n_clients, bs, width,
+                                           device),
+                         n_clients, bs, width, scfg.rounds, device)
+    return obss, impl, False
+
+
+def _stacked_obs_state(impl, obss, wires, plans, scheds, n_base,
+                       fault_none_only, wire_none_only, obs_none_only):
+    """The lane batch's state, obs-major over the transform-major over
+    fault-major over schedule-major base ((obs, wire, plan, sched)
+    blocks of n_base lanes).  A none-only obs axis reduces to
+    :func:`_stacked_wire_state`."""
+    if obs_none_only:
+        return _stacked_wire_state(impl, wires, plans, scheds, n_base,
+                                   fault_none_only, wire_none_only)
+    blocks = []
+    for op in obss:
+        for wp in wires:
+            for pl in plans:
+                kw = {"obs": op}
+                if not wire_none_only:
+                    kw["wire"] = wp
+                if not fault_none_only:
+                    kw["plan"] = pl
+                blocks += [(impl.init_state(sc, **kw), n_base)
+                           for sc in scheds]
     return stack_lane_states(impl, blocks)
 
 
@@ -489,11 +539,12 @@ class LaneBatch(NamedTuple):
     width: int
     device: torch.device
     # the engine's lane axes: parsed values, the shared impl (None: the
-    # sync round) and its initial state, lanes a (wire, fault, sched)
-    # block
+    # sync round) and its initial state, lanes a (obs, wire, fault,
+    # sched) block
     scheds: tuple = ()
     plans: tuple = ()
     wires: tuple = ()
+    obss: tuple = ()
     impl: object = None
     sched_state: dict = None
     n_base: int = 0
@@ -513,6 +564,10 @@ class LaneBatch(NamedTuple):
     @property
     def wire_none_only(self) -> bool:
         return len(self.wires) == 1 and self.wires[0].is_none
+
+    @property
+    def obs_none_only(self) -> bool:
+        return len(self.obss) == 1 and self.obss[0].is_none
 
     def round_draws(self, r, attempt=0):
         """Round r's coins and noise: each lane's slots from its own
@@ -543,12 +598,11 @@ def _init_lanes(model, opt, lanes, device):
 
 def build_lane_batch(dataset, mode, scfg: SweepConfig,
                      device=None) -> LaneBatch:
-    """Assemble the transforms x faults x schedules x client_counts x
-    seeds lane batch of one (dataset, mode) pair on ``device`` (CUDA
-    unless the caller names another): stacked data and layouts,
-    per-lane inits, the engine's shared impl and per-lane state, the
-    round."""
-    _refuse_deferred_axes(scfg)
+    """Assemble the obs x transforms x faults x schedules x
+    client_counts x seeds lane batch of one (dataset, mode) pair on
+    ``device`` (CUDA unless the caller names another): stacked data and
+    layouts, per-lane inits, the engine's shared impl and per-lane
+    state, the round."""
     device = resolve_device(device)
     counts, seeds = tuple(scfg.client_counts), tuple(scfg.seeds)
     max_c = max(counts)
@@ -558,8 +612,8 @@ def build_lane_batch(dataset, mode, scfg: SweepConfig,
         batch_size=scfg.batch_size, lr=scfg.lr,
         exchange_at=scfg.exchange_at, mode=mode, fedavg=scfg.fedavg,
         n_samples=scfg.n_samples, first_layer=scfg.first_layer)
-    n_tile = max(1, len(scfg.transforms) * len(scfg.faults)
-                 * len(scfg.schedules))
+    n_tile = max(1, len(scfg.obs) * len(scfg.transforms)
+                 * len(scfg.faults) * len(scfg.schedules))
     xtr, ytr, xte, yte, lay, lanes, width = _stacked_lanes(
         dataset, counts, seeds, scfg.n_samples, max_c, device,
         n_tile=n_tile)
@@ -572,6 +626,8 @@ def build_lane_batch(dataset, mode, scfg: SweepConfig,
                                             n_train, impl, device)
     wires, impl, wire_none = _sweep_transforms(scfg, mode, model, max_c,
                                                n_train, impl, device)
+    obss, impl, obs_none = _sweep_obs(scfg, mode, model, max_c, n_train,
+                                      impl, device)
     n_base = len(counts) * len(seeds)
     fl, first = _sweep_first_layer(pcfg, device, width)
     opt = adam(pcfg.lr, max_grad_norm=None)
@@ -585,9 +641,10 @@ def build_lane_batch(dataset, mode, scfg: SweepConfig,
         yte=yte, lay=lay, lanes=lanes, n_train=xtr.shape[1],
         n_batches=plan.n_batches, batch_size=plan.batch_size,
         width=width, device=device, scheds=scheds, plans=plans,
-        wires=wires, impl=impl,
-        sched_state=_stacked_wire_state(impl, wires, plans, scheds, n_base,
-                                        fault_none, wire_none),
+        wires=wires, obss=obss, impl=impl,
+        sched_state=_stacked_obs_state(impl, obss, wires, plans, scheds,
+                                       n_base, fault_none, wire_none,
+                                       obs_none),
         n_base=n_base)
 
 
@@ -654,8 +711,9 @@ def _trained(lb: LaneBatch):
 
 
 def _cell_telemetry(lb: LaneBatch, sched, sl) -> dict:
-    """A cell's fault and wire entries, summed over its lanes ``sl``:
-    the reference's cell keys."""
+    """A cell's fault and wire entries, summed over its lanes ``sl``,
+    and its obs series with a leading lane (seed) axis: the reference's
+    cell keys."""
     out = {}
     if not lb.fault_none_only:
         tel = lb.impl.telemetry(sched)
@@ -664,6 +722,9 @@ def _cell_telemetry(lb: LaneBatch, sched, sl) -> dict:
     if not lb.wire_none_only:
         out["wire"] = {k: int(np.sum(v[sl])) for k, v in
                        lb.impl.wire_telemetry(sched).items()}
+    if not lb.obs_none_only:
+        out["obs_series"] = {k: v[sl] for k, v in
+                             lb.impl.obs_series(sched).items()}
     return out
 
 
@@ -682,7 +743,6 @@ def run_cell(dataset, mode, n_clients, scfg: SweepConfig, device=None):
             raise ValueError(
                 f"run_cell takes exactly one {what}; use "
                 f"run_padded_cells({name}=...) for {grid} grids")
-    _refuse_deferred_axes(scfg)
     n_features = get_config(arch_for(dataset)).in_features
     layouts = [PT.make_layout(dataset, n_features, n_clients, seed=s)
                for s in scfg.seeds]
@@ -711,6 +771,8 @@ def run_cell(dataset, mode, n_clients, scfg: SweepConfig, device=None):
         cell["fault"] = lb.plans[0].spec
     if not lb.wire_none_only:
         cell["transform"] = lb.wires[0].spec
+    if not lb.obs_none_only:
+        cell["obs"] = lb.obss[0].spec
     cell.update(_cell_telemetry(lb, sched, slice(None)))
     return cell
 
@@ -765,13 +827,15 @@ def run_padded_cells(dataset, mode, scfg, shard="auto", device=None):
     Returns {"cells": {key: cell}, "round_traces": int, "lanes": int,
     "devices": int, "wall_s": float, "schedules": [...],
     "cells_per_sec": float, "steps_per_sec": float}, the JAX package's
-    schema: a sync-only fault-free transform-free batch keys its cells
-    by n_clients; a non-default schedule axis by "sched/n", a fault
-    axis by "fault/sched/n" (and adds "faults"), a transform axis by
-    "transform/fault/sched/n" (and adds "transforms").  Each cell has
+    schema: a sync-only fault-free transform-free obs-free batch keys
+    its cells by n_clients; a non-default schedule axis by "sched/n", a
+    fault axis by "fault/sched/n" (and adds "faults"), a transform axis
+    by "transform/fault/sched/n" (and adds "transforms"), an obs axis by
+    "obs/transform/fault/sched/n" (and adds "obs").  Each cell has
     run_cell's keys plus "schedule" (and "fault" with its
     "fault_telemetry", "transform" with its "wire" bytes, summed over
-    its seeds); wall_s is the SHARED batch wall, each cell's
+    its seeds, "obs" with its "obs_series", a leading seed axis);
+    wall_s is the SHARED batch wall, each cell's
     steps_per_sec its lanes' lane-steps over it (the cells sum to the
     batch's steps_per_sec).
     ``round_traces`` has no compile behind it here: it is the number of
@@ -783,12 +847,14 @@ def run_padded_cells(dataset, mode, scfg, shard="auto", device=None):
     n_dev = _lane_shards(lb.n_lanes, shard)
     f1s, accs, losses, wall, steps, sched = _trained(lb)
     cells = {}
-    blocks = itertools.product(lb.wires, lb.plans, lb.scheds)
-    for bi, (wp, pl, sc) in enumerate(blocks):
+    blocks = itertools.product(lb.obss, lb.wires, lb.plans, lb.scheds)
+    for bi, (op, wp, pl, sc) in enumerate(blocks):
         for ci, nc in enumerate(counts):
             lo = bi * lb.n_base + ci * s
             sl = slice(lo, lo + s)
-            if not lb.wire_none_only:
+            if not lb.obs_none_only:
+                ck = f"{op.spec}/{wp.spec}/{pl.spec}/{sc.spec}/{nc}"
+            elif not lb.wire_none_only:
                 ck = f"{wp.spec}/{pl.spec}/{sc.spec}/{nc}"
             elif not lb.fault_none_only:
                 ck = f"{pl.spec}/{sc.spec}/{nc}"
@@ -811,6 +877,8 @@ def run_padded_cells(dataset, mode, scfg, shard="auto", device=None):
                 cell["fault"] = pl.spec
             if not lb.wire_none_only:
                 cell["transform"] = wp.spec
+            if not lb.obs_none_only:
+                cell["obs"] = op.spec
             cell.update(_cell_telemetry(lb, sched, sl))
             cells[ck] = cell
     out = {"cells": cells, "round_traces": 1, "lanes": lb.n_lanes,
@@ -822,6 +890,8 @@ def run_padded_cells(dataset, mode, scfg, shard="auto", device=None):
         out["faults"] = [pl.spec for pl in lb.plans]
     if not lb.wire_none_only:
         out["transforms"] = [w.spec for w in lb.wires]
+    if not lb.obs_none_only:
+        out["obs"] = [o.spec for o in lb.obss]
     return out
 
 

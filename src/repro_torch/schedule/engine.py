@@ -20,6 +20,10 @@ Every impl implements the four-hook contract the round drives:
   round_end(state) -> state
       Called after the round's steps (double_buffer's swap).
 
+A fifth hook is optional: ``tap_step(state, losses, grads, lay) ->
+state``, the obs taps (``repro_torch.obs.taps``), called once a step
+with the per-client losses and gradients the step computed.
+
 Lane batches (``repro_torch.core.sweep``): the client axis holds L lanes
 of ``n_clients`` slots and ``lay.client_mask`` is [L, n_clients]; a
 per-client leaf carries every slot ([L*n, ...] on its client axis), a
@@ -269,6 +273,19 @@ def make_sched_step_fn(model, opt, pcfg, impl, layout, device,
                          f"mode='devertifl', got {pcfg.mode!r}")
     fl = P.resolve_first_layer(pcfg, device)
     k = pcfg.exchange_at
+    # the fifth (optional) impl hook: the obs taps record the loss vector
+    # and grads the step already computed; None for every tap-free impl
+    tap = getattr(impl, "tap_step", None)
+
+    def update(params, opt_state, sstate, losses, grads, lay, step_idx):
+        # the taps read the raw grads BEFORE opt.update, which may clip
+        # them; they only record, so the reference's call after its
+        # (functional) update sees the same values
+        if tap is not None:
+            sstate = tap(sstate, losses, grads, lay)
+        params, opt_state, _ = opt.update(grads, opt_state, params,
+                                          step_idx)
+        return params, opt_state, sstate
 
     if fl == "masked":
         def step(params, opt_state, lay, eff_mask, sstate, xb, yb,
@@ -282,10 +299,11 @@ def make_sched_step_fn(model, opt, pcfg, impl, layout, device,
                                   eff_mask)
             own = h_ref * eff_mask.reshape(-1, 1, 1)
             losses = P._ce(P.rest(model, k, ps, h_all + h_sum - own), yb)
-            params, opt_state, _ = opt.update(P._grads(losses.sum(), ps),
-                                              opt_state, params, step_idx)
+            losses, grads = losses.detach(), P._grads(losses.sum(), ps)
+            params, opt_state, sstate = update(params, opt_state, sstate,
+                                               losses, grads, lay, step_idx)
             return (params, opt_state, sstate,
-                    P._masked_mean(losses.detach(), lay.client_mask))
+                    P._masked_mean(losses, lay.client_mask))
         return step
 
     first = first_layer_fn or P.make_first_layer_fn(model, pcfg, layout,
@@ -298,9 +316,9 @@ def make_sched_step_fn(model, opt, pcfg, impl, layout, device,
         h = scheduled_exchange(h_all, h_ref, eff_mask)
         losses = P._ce(P.rest(model, k, ps, h), yb)
         cm = lay.client_mask
-        params, opt_state, _ = opt.update(
-            P._grads(by_lane(losses, cm) * cm, ps), opt_state, params,
-            step_idx)
-        return (params, opt_state, sstate,
-                P._masked_mean(losses.detach(), cm))
+        grads = P._grads(by_lane(losses, cm) * cm, ps)
+        losses = losses.detach()
+        params, opt_state, sstate = update(params, opt_state, sstate,
+                                           losses, grads, lay, step_idx)
+        return (params, opt_state, sstate, P._masked_mean(losses, cm))
     return step

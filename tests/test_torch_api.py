@@ -206,12 +206,9 @@ def test_spec_normalization_and_replace():
     ("schedule", "stale_k:2"), ("fault", "crash:0.2"),
     ("transform", "int8"), ("obs", "basic")])
 def test_unported_stream_axes_refuse(field, value):
-    """Only obs still waits (Queue 1 item 4d); the schedule, fault and
-    transform axes run and canonicalize as the reference's."""
-    if field == "obs":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-            ExperimentSpec(dataset="titanic", **{field: value})
-        return
+    """Every stream axis runs now: the schedule, fault, transform and obs
+    axes canonicalize as the reference's and refuse non-devertifl
+    modes."""
     spec = ExperimentSpec(dataset="titanic", **{field: value})
     assert getattr(spec, field) == value
     with pytest.raises(ValueError, match="devertifl"):
@@ -488,14 +485,18 @@ def test_train_federation_shim_warns_and_matches_train():
 
 
 def test_deferred_entry_points_name_their_queue_item():
+    """The entry points once deferred run: server()/serve() refuse only
+    as the reference does (before run()), and obs="full" builds a
+    Session with an armed tracer."""
     spec = ExperimentSpec(**TINY)
     sess = _cpu(spec)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="before run"):
         sess.server()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="before run"):
         sess.serve([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        ExperimentSpec(**TINY, obs="full")
+    full = ExperimentSpec(**TINY, obs="full")
+    assert full.obs == "full" and full.spec_hash == spec.spec_hash
+    assert _cpu(full).tracer.active and not sess.tracer.active
     # a RetryPolicy runs now (repro_torch.faults); anything else is
     # refused as the reference refuses it
     with pytest.raises(TypeError, match="RetryPolicy"):

@@ -132,13 +132,8 @@ def test_set_fedavg():
     ("schedule", "stale_k:2"), ("fault", "crash:0.2"),
     ("transform", "int8"), ("obs", "basic")])
 def test_unported_plans_refuse(field, value):
-    """Only obs is still refused (ROADMAP.md, Queue 1 item 4d); the
-    schedule, fault and transform plans run, in devertifl mode only."""
-    if field == "obs":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DeVertiFL(ProtocolConfig(**TITANIC, **{field: value}),
-                      device="cpu")
-        return
+    """Every plan runs now: the schedule, fault, transform and obs plans
+    wrap the engine, in devertifl mode only."""
     fed = DeVertiFL(ProtocolConfig(**TITANIC, **{field: value}),
                     device="cpu")
     assert fed.init_sched_state()

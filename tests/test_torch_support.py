@@ -59,6 +59,8 @@ _REFERENCE_MODULES = {
     "codecs": "repro.wire.codecs",
     "spec": "repro.api.spec",
     "session": "repro.api.session",
+    "obs": "repro.obs",
+    "federated": "repro.serving.federated",
 }
 
 

@@ -502,7 +502,7 @@ def test_grid_validation_errors_are_the_references(ref, case):
 
 
 # ---------------------------------------------------------------------------
-# the engine's lane axes: only obs still waits (Queue 1 item 4d)
+# the engine's lane axes: schedules, faults, transforms and obs all run
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("field,value", [
     ("schedules", ("sync", "stale_k:2")), ("faults", ("crash:0.2",)),
@@ -521,12 +521,18 @@ def test_deferred_sweep_axes_name_their_queue_item(field, value):
     axis = {"schedules": "schedules", "faults": "faults",
             "transforms": "transforms"}.get(field)
     if axis is None:
-        for call in calls:
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 4d"):
-                call()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-            spec_grid(datasets=("titanic",), obs=value[0])
+        # the obs axis runs: every entry point records the level's
+        # series, and a spec grid carries it as a common field
+        out = calls[1]()
+        assert out["obs"] == list(value) and len(out["cells"]) == 1
+        assert calls[0]().n_lanes == 1
+        assert set(calls[2]()["cells"]) == {
+            f"titanic/devertifl/basic/none/none/sync/2"}
+        assert calls[3]()["obs_series"]["loss"].shape == (1, 1)
+        specs = spec_grid(datasets=("titanic",), modes=("devertifl",),
+                          client_counts=(2,), seeds=(0,), rounds=1,
+                          epochs=1, first_layer="slice", obs=value[0])
+        assert [sp.obs for sp in specs] == list(value)
         return
     # the schedule, fault and transform axes run: one lane a value
     assert build_lane_batch("titanic", "devertifl", scfg,
