@@ -20,16 +20,22 @@ Phases, each printing one JSON line:
               serving paths' shapes (qwen2-7b prefill at S = 128, 1024,
               1536; decode at B = 8 over 2048 ring slots, partly written
               and wrapped; deepseek-moe-16b prefill at S = 1024 and
-              decode, 16 heads of 16, group 1) and at the Pallas options
+              decode, 16 heads of 16, group 1; seamless-m4t-medium's
+              encoder at S = 1024, non-causal, its decoder prefill at
+              Sq = 16 and cross prefills at Sq = 16 and 100 over 1024
+              frames, its cross decode at B = 8 over 1024 frames and
+              self decode over 128 ring slots, 16 heads of 64, group 1;
+              llava-next-34b prefill at S = 3392 and decode at B = 8
+              over 3456 ring slots, group 7) and at the Pallas options
               the path does not use (window, softcap, hd 64 and 256,
               float32, tails of rows and keys), element by element
               against the plain float32 result, each case naming the
               route it ran (ops.route: wgmma, split_k_wgmma, split_k,
-              cuda_cores); four planted faults (window and causal mask
+              cuda_cores); five planted faults (window and causal mask
               off by one, a ring tile dropped, one split's partial left
-              out of the combine) must fail that check; and times
-              kernel, plain version, bound and
-              scaled_dot_product_attention
+              out of the combine, a non-causal call's last key tile
+              skipped) must fail that check; and times kernel, plain
+              version, bound and scaled_dot_product_attention
   5. moe_router
               holds moe_router against its plain version at the MoE
               serving paths' shapes (T = 8 a decode step, 1326 and 1536
@@ -239,6 +245,34 @@ Phases, each printing one JSON line:
               prefill (planted faults: y read from h_{t-1}, dt one step
               late, the last channel tile short one channel); logits
               against the plain scan; the state carry; profiles
+ 19. serve_audio
+              after jamba's memory is released, serves
+              seamless-m4t-medium at full size (12 encoder and 12
+              decoder layers, d_model 1024, 16 heads of 64, bf16) on 8
+              slots of 128: 12 greedy requests of 2-16 tokens (a
+              target-language tag, then text; numpy seed 0), each over
+              the engine's 1,024 zero frames, 64 new tokens;
+              flash_attention 36 launches a prefill (12 encoder, 12
+              self, 12 cross) and 24 a decode step, no other kernel;
+              rerun bitwise; on the first prompt over random frames
+              (numpy seed 1) every attention call of the prefill held to
+              the plain version element by element, which a planted
+              fault (every cross attention reading one frame fewer) must
+              fail, and the logits against the plain attention's, which
+              the cross attention skipped must fail; then one decode
+              step and one prefill under torch.profiler
+ 20. serve_vlm
+              serves llava-next-34b at full width and depth (60 layers,
+              d_model 7168, 56/8 heads of 128, bf16) on 8 slots of
+              3,456: 12 greedy requests of 32-512 tokens after the
+              engine's 2,880 zero image rows, 32 new tokens;
+              flash_attention 60 launches a prefill and a decode step,
+              no other kernel; rerun bitwise; on the first prompt after
+              random image rows (numpy seed 1) every attention call held
+              to the plain version (a 32-key tile cut from every layer's
+              last row must fail), the logits against the plain
+              attention's (that cut and the first image row changed
+              must fail); profiles
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
@@ -246,6 +280,7 @@ and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -328,7 +363,14 @@ SCAN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5 + 2.0 ** -8}
 # in every layer, reads 0.203; missing its first key, 0.0290 (the
 # attention check catches that one).  Both measured on an NVIDIA H100
 # 80GB HBM3, power limit 700 W; the limit sits 3x above the first and
-# 4x under the planted tile.
+# 4x under the planted tile.  The vlm and audio families read against the
+# same limit: llava-next-34b (60 layers, 2,880 image rows and 441 text
+# tokens) 0.0323, its one-tile cut 0.345 and its first image row changed
+# 0.945; seamless-m4t-medium (12 + 12 layers over 1,024 frames) 0.0094,
+# its cross attention skipped 1.016, one frame fewer in every cross
+# attention 0.0098 (one key of 1,024 moves the logits less than the
+# roundings: the per-call attention check sees that one).  Measured on
+# an NVIDIA H100 80GB HBM3, power limit 700 W.
 SERVE_LOGIT_RTOL = 5e-2
 # rwkv6-1.6b and jamba prefill logits through the scan kernel vs through
 # its plain version, |diff| over |plain| (L2 over the vocabulary), as
@@ -691,6 +733,8 @@ def _attn_work(q, k, causal, window, q_pos, k_pos):
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     mask = attention_mask(Sq, Skv, q_pos, k_pos, causal, window, q.device)
+    # a mask by key alone (non-causal, no window) is [.., 1, Skv]
+    mask = mask.expand(mask.shape[0], 1, Sq, Skv)
     pairs = int(mask.sum()) * (B // mask.shape[0])
     slots = B * Skv if k_pos is None else \
         int((k_pos >= 0).sum()) * (B if k_pos.dim() == 1 else 1)
@@ -717,11 +761,20 @@ def _planted_faults(kept) -> dict:
                          device=q.device)
     ring = kept["decode B=8 over 2048 ring slots"][3]["k_pos"].clone()
     ring[:, 32:64] = -1                 # live in every row (positions >= 128)
+    # a non-causal call with its last 64-key tile skipped: the frames
+    # given positions, the last tile's -1 (unwritten), so the kernel
+    # leaves them out; every row sees them in the true mask
+    cross = "seamless cross prefill Sq=100 over 1024 frames"
+    frames = kept[cross][1].shape[2]
+    last_tile = torch.arange(frames, dtype=torch.int32, device=q.device)
+    last_tile[-64:] = -1
     faults = {"window 257 for 256": ("window 256", {"window": 257}),
               "causal: each row sees the next key":
                   ("prefill S=1024", {"q_pos": ahead}),
               "decode: one 32-key tile of the ring dropped":
-                  ("decode B=8 over 2048 ring slots", {"k_pos": ring})}
+                  ("decode B=8 over 2048 ring slots", {"k_pos": ring}),
+              "non-causal: the last key tile skipped":
+                  (cross, {"k_pos": last_tile})}
     readings = {}
     for fault, (case, change) in faults.items():
         q, k, v, opts, ref = kept[case]
@@ -763,6 +816,17 @@ def phase_attn_kernel() -> dict:
     last_wrap = torch.randint(2100, 4000, (B_dec,), generator=gen)
     ring_wrap = _ring_positions(B_dec, slots, last_wrap)
     qpos_wrap = last_wrap.to(torch.int32)[:, None].cuda()
+    # seamless-m4t-medium's decoder ring (phase serve_audio: 128 slots,
+    # prompts of up to 16 tokens and 64 new) and llava-next-34b's
+    # (serve_vlm: 3,456 slots, 2,880 image rows, prompts of 32-512
+    # tokens and 32 new), each partly written
+    last_s = torch.randint(2, 80, (B_dec,), generator=gen)
+    ring_s = _ring_positions(B_dec, AUDIO.cache_len, last_s)
+    qpos_s = last_s.to(torch.int32)[:, None].cuda()
+    last_l = torch.randint(2912, 3424, (B_dec,), generator=gen)
+    ring_l = _ring_positions(B_dec, VLM.cache_len, last_l)
+    qpos_l = last_l.to(torch.int32)[:, None].cuda()
+    frames = 1024                       # seamless's encoder frames
     # name, (B, H, KV, Sq, Skv, hd, dtype, cache layout), options,
     # on the serving path
     cases = [
@@ -780,6 +844,31 @@ def phase_attn_kernel() -> dict:
         ("deepseek decode B=8 over 2048 ring slots",
          (B_dec, 16, 16, 1, slots, 128, bf16, True),
          {"q_pos": qpos_dec, "k_pos": ring}, True),
+        # seamless-m4t-medium: MHA, 16 heads of 64; the encoder and the
+        # cross attention non-causal over 1,024 frames, no positions
+        ("seamless encoder S=1024",
+         (1, 16, 16, frames, frames, 64, bf16, True), {"causal": False},
+         True),
+        ("seamless decoder prefill Sq=16",
+         (1, 16, 16, 16, 16, 64, bf16, True), {}, True),
+        ("seamless cross prefill Sq=16 over 1024 frames",
+         (1, 16, 16, 16, frames, 64, bf16, True), {"causal": False}, True),
+        ("seamless cross prefill Sq=100 over 1024 frames",
+         (1, 16, 16, 100, frames, 64, bf16, True), {"causal": False},
+         True),
+        ("seamless cross decode B=8 over 1024 frames",
+         (B_dec, 16, 16, 1, frames, 64, bf16, True), {"causal": False},
+         True),
+        ("seamless decode B=8 over 128 ring slots",
+         (B_dec, 16, 16, 1, AUDIO.cache_len, 64, bf16, True),
+         {"q_pos": qpos_s, "k_pos": ring_s}, True),
+        # llava-next-34b: 56 heads over 8, hd 128; 2,880 image rows and
+        # 512 text tokens
+        ("llava prefill S=3392", (1, 56, 8, 3392, 3392, 128, bf16, True),
+         {}, True),
+        ("llava decode B=8 over 3456 ring slots",
+         (B_dec, 56, 8, 1, VLM.cache_len, 128, bf16, True),
+         {"q_pos": qpos_l, "k_pos": ring_l}, True),
         ("decode float32", (B_dec, 28, 4, 1, slots, 128, f32, True),
          {"q_pos": qpos_dec, "k_pos": ring}, False),
         ("window 256", (1, 28, 4, 1024, 1024, 128, bf16, False),
@@ -3333,40 +3422,99 @@ def _serve(model, params, requests, max_batch, cache_len):
         "first_token_s": first, "wall_s": wall}
 
 
-def _logit_readings(cfg, params, prompt, cache_len, device) -> dict:
-    """The prompt's last-token logits through the kernel against the
-    plain version's, |diff| over |plain| (L2 over the vocabulary); the
-    same reading for two planted faults: the last row missing its first
-    key, and its first 32-key tile, in every layer (the kernel with a
-    window of the prompt's length less 1 or 32)."""
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_ref)
-    from repro_torch.models import build_model
-    n = len(prompt)
-    batch = {"tokens": torch.tensor([prompt], device=device)}
+def _window_cuts(rows) -> dict:
+    """Two planted faults of a causal prefill of ``rows`` rows: the last
+    row missing its first key, and its first 32-key tile, in every layer
+    (the kernel with a window of ``rows`` less 1 or 32)."""
+    from repro_torch.kernels.flash_attention import flash_attention
 
     def cut(keys):
         def attend(q, k, v, **kw):
-            return flash_attention(q, k, v, **{**kw, "window": n - keys})
+            return flash_attention(q, k, v, **{**kw, "window": rows - keys})
         return attend
+    return {"one_key": (cut(1), None), "one_tile": (cut(32), None)}
 
-    def logits(attend):
+
+def _plain_by_kv_head(q, k, v, **kw):
+    """flash_attention_ref one kv head (and its group of query heads) at
+    a time: the same function in a fraction of the memory (a llava
+    prefill's scores at once are 2.6 GB a call)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([flash_attention_ref(q[:, i * g:(i + 1) * g],
+                                          k[:, i:i + 1], v[:, i:i + 1], **kw)
+                      for i in range(k.shape[1])], dim=1)
+
+
+def _logit_readings(cfg, params, batch, cache_len, faults) -> dict:
+    """The batch's last-token prefill logits through the kernel against
+    the plain version's, |diff| over |plain| (L2 over the vocabulary);
+    the same reading for each planted fault in ``faults``: name ->
+    (attention function or None for the kernel, the batch it reads or
+    None for the same)."""
+    from repro_torch.models import build_model
+
+    def logits(attend, b=None):
         return build_model(cfg, attend=attend).prefill(
-            params, batch, cache_len=cache_len)[0].flatten()
+            params, b or batch, cache_len=cache_len)[0].flatten()
 
-    plain = logits(flash_attention_ref)
+    plain = logits(_plain_by_kv_head)
 
     def rel(x):
         return float((x - plain).norm() / plain.norm())
     kernel = logits(None)
-    return {"prompt_tokens": n, "rel_l2": rel(kernel),
+    return {"prompt_tokens": batch["tokens"].shape[1],
+            "prefix_rows": batch["prefix_emb"].shape[1]
+            if "prefix_emb" in batch else 0,
+            "rel_l2": rel(kernel),
             "max_abs": max_err(kernel, plain),
             "max_abs_plain": float(plain.abs().max()),
             "cosine": float(torch.nn.functional.cosine_similarity(
                 kernel, plain, dim=0)),
             "same_top1": int(kernel.argmax()) == int(plain.argmax()),
-            "fault_one_key_rel_l2": rel(logits(cut(1))),
-            "fault_one_tile_rel_l2": rel(logits(cut(32)))}
+            "finite": bool(torch.isfinite(kernel).all()),
+            **{f"fault_{name}_rel_l2": rel(logits(attend, b))
+               for name, (attend, b) in faults.items()}}
+
+
+def _attn_call_readings(cfg, params, batch, cache_len, faults) -> dict:
+    """The batch's prefill with every attention call's kernel output held
+    against the plain version on the same inputs, element by element
+    (``attn_excess``; the run goes on with the kernel's output), and each
+    planted fault (name -> attention function) read the same way on the
+    same calls."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    readings = {"kernel": [], **{name: [] for name in faults}}
+    shapes = {}
+
+    def checked(q, k, v, **kw):
+        out = flash_attention(q, k, v, **kw)
+        want = _plain_by_kv_head(q.float(), k.float(), v.float(), **kw)
+        readings["kernel"].append(attn_excess(out, want))
+        for name, fault in faults.items():
+            readings[name].append(attn_excess(fault(q, k, v, **kw), want))
+        key = (f"{'causal' if kw['causal'] else 'non-causal'}, Sq "
+               f"{q.shape[2]} over Skv {k.shape[2]}")
+        shapes[key] = shapes.get(key, 0) + 1
+        return out
+
+    with torch.no_grad():
+        build_model(cfg, attend=checked).prefill(params, batch,
+                                                 cache_len=cache_len)
+    return {"calls": shapes,
+            **{name: {"calls": len(rs), "max_excess": max(rs),
+                      "calls_over_limit": sum(r > 1.0 for r in rs)}
+               for name, rs in readings.items()}}
+
+
+def _call_checks(name, calls, faults) -> None:
+    check(calls["kernel"]["max_excess"] <= 1.0,
+          f"{name} prefill attention calls, kernel vs plain: "
+          f"{calls['kernel']}")
+    for fault in faults:
+        check(calls[fault]["max_excess"] > 1.0, f"planted fault '{fault}' "
+              f"passed the {name} attention check: {calls[fault]}")
 
 
 # every parameter of each served tree, as jax.eval_shape of the JAX
@@ -3376,7 +3524,9 @@ def _logit_readings(cfg, params, prompt, cache_len, device) -> dict:
 SERVED_PARAMS = {("qwen2-7b", 28): 7_615_616_512,
                  ("deepseek-moe-16b", 28): 16_375_728_128,
                  ("rwkv6-1.6b", 24): 1_584_091_136,
-                 ("jamba-v0.1-52b", 16): 26_053_480_448}
+                 ("jamba-v0.1-52b", 16): 26_053_480_448,
+                 ("llava-next-34b", 60): 34_388_917_248,
+                 ("seamless-m4t-medium", 12): 877_260_800}
 
 
 def _init_model(name, num_layers=None):
@@ -3416,6 +3566,13 @@ N_NEW, MAX_BATCH, CACHE_LEN = 32, 8, 2048
 DEVICE = "cuda"
 
 
+# an engine's slots, cache slots a slot and new tokens a request (a
+# namedtuple: the tests load this file as a module outside sys.modules,
+# where a dataclass cannot be made)
+Serving = collections.namedtuple("Serving", "max_batch cache_len n_new")
+TEXT = Serving(MAX_BATCH, CACHE_LEN, N_NEW)
+
+
 def _prompts(cfg):
     """12 prompts of 128-1536 tokens (numpy seed 0): more requests than
     slots, so slots refill."""
@@ -3426,19 +3583,20 @@ def _prompts(cfg):
             for n in lengths]
 
 
-def _requests(prompts):
+def _requests(prompts, n_new=N_NEW):
     from repro_torch.serving import Request
-    return [Request(uid=i, prompt=p, max_new_tokens=N_NEW)
+    return [Request(uid=i, prompt=p, max_new_tokens=n_new)
             for i, p in enumerate(prompts)]
 
 
-def _counted_serve(cfg, model, params, prompts, per_layer):
+def _counted_serve(cfg, model, params, prompts, per_layer, run=TEXT):
     """Serve the prompts with every launch count set to 0 just before
     and read just after; checks the tokens, that each kernel in
-    ``per_layer`` (name -> (wrapper, layers that launch it)) launched
-    once per such layer per prefill and decode step, and that no other
-    kernel launched.  Then a rerun, whose tokens must be bitwise equal.
-    Returns (launches, engine counts, tokens, timings, peak bytes)."""
+    ``per_layer`` (name -> its wrapper calls a prefill and a decode
+    step, as one count for both or a (prefill, step) pair) launched so
+    often, and that no other kernel launched.  Then a rerun, whose
+    tokens must be bitwise equal.  Returns (launches, engine counts,
+    tokens, timings, peak bytes)."""
     from repro_torch.kernels import (
         flash_attention, mamba_scan, mamba_scan_fused, moe_router,
         rwkv6_scan, vfl_matmul_clients)
@@ -3449,38 +3607,44 @@ def _counted_serve(cfg, model, params, prompts, per_layer):
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
-    engine, out, t = _serve(model, params, _requests(prompts), MAX_BATCH,
-                            CACHE_LEN)
+    engine, out, t = _serve(model, params, _requests(prompts, run.n_new),
+                            run.max_batch, run.cache_len)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     check(sorted(out) == list(range(len(prompts))), f"done: {sorted(out)}")
-    check(all(len(v) == N_NEW and all(0 <= x < cfg.vocab_size for x in v)
+    check(all(len(v) == run.n_new and all(0 <= x < cfg.vocab_size
+                                          for x in v)
               for v in out.values()), "a request's tokens are not "
-          f"{N_NEW} in-vocab ids")
-    calls = engine.prefills + engine.decode_steps
+          f"{run.n_new} in-vocab ids")
     for name in wrappers:
-        layers = per_layer.get(name, 0)
-        check(launches[name] == layers * calls,
+        n = per_layer.get(name, 0)
+        pre, step = n if isinstance(n, tuple) else (n, n)
+        want = pre * engine.prefills + step * engine.decode_steps
+        check(launches[name] == want,
               f"{cfg.name}: {name} launched {launches[name]} times, "
-              f"expected {layers * calls} = {layers} x ({engine.prefills} "
-              f"prefills + {engine.decode_steps} decode steps)")
+              f"expected {want} = {pre} x {engine.prefills} prefills + "
+              f"{step} x {engine.decode_steps} decode steps")
     counts = {"prefills": engine.prefills, "decode_steps": engine.decode_steps}
     del engine
-    _, again, _ = _serve(model, params, _requests(prompts), MAX_BATCH,
-                         CACHE_LEN)
+    _, again, _ = _serve(model, params, _requests(prompts, run.n_new),
+                         run.max_batch, run.cache_len)
     check(again == out, f"{cfg.name} serving rerun: tokens are not bitwise "
           "equal")
     return launches, counts, out, t, peak
 
 
-def _serve_metrics(prompts, t) -> dict:
+def _serve_metrics(prompts, t, run=TEXT, prefix_rows=0) -> dict:
+    """Tokens/s, TTFT and step times of a ``_serve`` run; prefill rows/s
+    also counts each request's ``prefix_rows`` (a vlm's image rows)."""
     step_ms = [x * 1e3 for x in t["step_s"]]
+    rows = sum(map(len, prompts)) + prefix_rows * len(prompts)
     return {
-        "max_batch": MAX_BATCH, "cache_len": CACHE_LEN,
+        "max_batch": run.max_batch, "cache_len": run.cache_len,
         "requests": len(prompts),
-        "prompt_lengths": [len(p) for p in prompts], "new_tokens": N_NEW,
+        "prompt_lengths": [len(p) for p in prompts], "new_tokens": run.n_new,
         "wall_s": t["wall_s"],
         "prefill_tokens_per_s": sum(map(len, prompts)) / sum(t["admit_s"]),
+        "prefill_rows_per_s": rows / sum(t["admit_s"]),
         "decode_tokens_per_s": sum(t["active"]) / sum(t["step_s"]),
         "ttft_s": {"first_request": t["first_token_s"][0],
                    "mean": sum(t["first_token_s"]) / len(prompts),
@@ -3491,24 +3655,29 @@ def _serve_metrics(prompts, t) -> dict:
         "rerun_bitwise": True}
 
 
-def _serve_profiles(model, params, prompts) -> dict:
+def _serve_profiles(model, params, prompts, run=TEXT, prefix=None) -> dict:
     """Where an engine decode step (8 slots after 8 prefills) and a
-    prefill of 1024 tokens spend their time (torch.profiler)."""
+    prefill of the second prompt's first 1024 tokens (after ``prefix``,
+    a vlm's image rows or an encoder's frames) spend their time
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServingEngine
-    engine = ServingEngine(model, params, max_batch=MAX_BATCH,
-                           cache_len=CACHE_LEN)
-    for r in _requests(prompts)[:MAX_BATCH]:
+    engine = ServingEngine(model, params, max_batch=run.max_batch,
+                           cache_len=run.cache_len)
+    for r in _requests(prompts, run.n_new)[:run.max_batch]:
         engine.submit(r)
     engine._admit()
     engine.step()
-    batch = {"tokens": torch.tensor([prompts[1][:1024]], device=DEVICE)}
-    model.prefill(params, batch, cache_len=CACHE_LEN)
+    batch = _batch(prompts[1][:1024], prefix)
+    model.prefill(params, batch, cache_len=run.cache_len)
     torch.cuda.synchronize()
+    rows = batch["tokens"].shape[1]
+    if prefix is not None and not model.cfg.is_encoder_decoder:
+        rows = f"{prefix.shape[1]} + {rows}"
     profiles = {}
-    for name, fn in (("decode step, B=8", engine.step),
-                     ("prefill, S=1024", lambda: model.prefill(
-                         params, batch, cache_len=CACHE_LEN))):
+    for name, fn in ((f"decode step, B={run.max_batch}", engine.step),
+                     (f"prefill, S={rows}", lambda: model.prefill(
+                         params, batch, cache_len=run.cache_len))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3519,6 +3688,15 @@ def _serve_profiles(model, params, prompts) -> dict:
     return profiles
 
 
+def _batch(prompt, prefix=None) -> dict:
+    """A B = 1 prefill batch on the card: the prompt, and ``prefix``
+    [1, P, D] as its ``prefix_emb`` where given."""
+    batch = {"tokens": torch.tensor([prompt], device=DEVICE)}
+    if prefix is not None:
+        batch["prefix_emb"] = prefix
+    return batch
+
+
 def phase_serve(attn_row) -> None:
     cfg, model, params, info = _init_model("qwen2-7b")
     prompts = _prompts(cfg)
@@ -3527,7 +3705,8 @@ def phase_serve(attn_row) -> None:
 
     # the first prompt's logits, kernel vs plain attention, and the
     # planted faults the comparison must see
-    logit = _logit_readings(cfg, params, prompts[0], CACHE_LEN, DEVICE)
+    logit = _logit_readings(cfg, params, _batch(prompts[0]), CACHE_LEN,
+                            _window_cuts(len(prompts[0])))
     emit({"phase": "serve_logits", "rtol": SERVE_LOGIT_RTOL, **logit})
     check(logit["rel_l2"] <= SERVE_LOGIT_RTOL,
           f"prefill logits, kernel vs plain attention: |diff| / |plain| = "
@@ -3859,6 +4038,173 @@ def phase_serve_hybrid(mamba_row, attn_row, router_row) -> None:
                                                              prompts)})
 
 
+# ---------------------------------------------------------------------------
+# the vlm and audio families: llava-next-34b's 2,880 image rows before
+# the prompt in the decoder's cache (32 new tokens), seamless-m4t-medium's
+# 1,024 frames through its encoder (64 new)
+VLM = Serving(max_batch=8, cache_len=3456, n_new=32)
+AUDIO = Serving(max_batch=8, cache_len=128, n_new=64)
+
+
+def _random_prefix(cfg, seed):
+    """[1, P, D] image rows or frames (numpy seed), in the model's
+    dtype on the card: what the logit readings feed in place of the
+    engine's zeros, so that the prefix carries information."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((1, cfg.num_prefix_embeddings, cfg.d_model),
+                            np.float32)
+    return torch.from_numpy(x).to(DEVICE, getattr(torch, cfg.dtype))
+
+
+def phase_serve_vlm(attn_row) -> None:
+    """llava-next-34b at full width and depth through ServingEngine: 12
+    requests of 32-512 text tokens (numpy seed 0), each after the
+    engine's 2,880 zero image rows."""
+    t_phase = time.perf_counter()
+    held = _release()
+    cfg, model, params, info = _init_model("llava-next-34b")
+    P = cfg.num_prefix_embeddings
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(32, 513, 12)]
+    launches, counts, _, t, peak = _counted_serve(
+        cfg, model, params, prompts, {"flash_attention": cfg.num_layers},
+        VLM)
+
+    # the first prompt after random image rows: every attention call held
+    # to the plain version, the logits against the plain attention's, and
+    # the faults those checks must see: a tile cut from every layer's
+    # last row, and the first image row changed (the image reaches the
+    # logits)
+    prefix = _random_prefix(cfg, 1)
+    batch = _batch(prompts[0], prefix)
+    other = prefix.clone()
+    other[:, 0] = _random_prefix(cfg, 2)[:, 0]
+    rows = P + len(prompts[0])
+    cuts = _window_cuts(rows)
+    calls = _attn_call_readings(
+        cfg, params, batch, VLM.cache_len,
+        {"one_tile": cuts["one_tile"][0]})
+    logit = _logit_readings(cfg, params, batch, VLM.cache_len,
+                            {**cuts, "first_image_row": (
+                                None, _batch(prompts[0], other))})
+    emit({"phase": "serve_vlm_checks", "rtol": SERVE_LOGIT_RTOL,
+          "attention_calls": calls, "logits": logit})
+    _call_checks(cfg.name, calls, ["one_tile"])
+    check(calls["calls"] == {f"causal, Sq {rows} over Skv {rows}":
+                             cfg.num_layers},
+          f"{cfg.name}: {calls['calls']} attention calls in a prefill")
+    check(logit["finite"], f"{cfg.name} prefill logits not finite")
+    check(logit["rel_l2"] <= SERVE_LOGIT_RTOL,
+          f"{cfg.name} prefill logits, kernel vs plain attention: |diff| / "
+          f"|plain| = {logit['rel_l2']} > {SERVE_LOGIT_RTOL}")
+    for fault in ("one_tile", "first_image_row"):
+        check(logit[f"fault_{fault}_rel_l2"] > SERVE_LOGIT_RTOL,
+              f"planted fault '{fault}' passed the {cfg.name} logits check: "
+              f"{logit[f'fault_{fault}_rel_l2']} <= {SERVE_LOGIT_RTOL}")
+
+    attn_row["launches_serve_vlm"] = launches["flash_attention"]
+    emit({"phase": "serve_vlm", **info, "image_rows": P,
+          "allocated_before_gb": held / 1e9, "serve_peak_gb": peak / 1e9,
+          **counts, "flash_attention_launches": launches["flash_attention"],
+          **_serve_metrics(prompts, t, VLM, prefix_rows=P),
+          "logits_kernel_vs_plain_rel_l2": logit["rel_l2"],
+          "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "serve_vlm_profile", **_serve_profiles(
+        model, params, prompts, VLM, torch.zeros_like(prefix))})
+
+
+def _is_cross(q, k, causal):
+    """A cross attention call: non-causal, its queries not its keys (Sq
+    != Skv at these prompts; the encoder's calls are Sq = Skv)."""
+    return not causal and q.shape[2] != k.shape[2]
+
+
+def _one_frame_fewer(q, k, v, **kw):
+    """A planted fault: the kernel with every cross attention reading
+    one frame fewer."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    if _is_cross(q, k, kw["causal"]):
+        k, v = k[:, :, :-1], v[:, :, :-1]
+    return flash_attention(q, k, v, **kw)
+
+
+def _cross_skipped(q, k, v, **kw):
+    """A planted fault: every cross attention's output zero, which is the
+    block without its cross attention (the path a state without its
+    encoder memory takes)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    if _is_cross(q, k, kw["causal"]):
+        return torch.zeros_like(q)
+    return flash_attention(q, k, v, **kw)
+
+
+def phase_serve_audio(attn_row) -> None:
+    """seamless-m4t-medium at full size through ServingEngine: 12
+    requests of 2-16 tokens (a target-language tag, then text; numpy
+    seed 0), each over the engine's 1,024 zero frames."""
+    t_phase = time.perf_counter()
+    held = _release()
+    cfg, model, params, info = _init_model("seamless-m4t-medium")
+    L, E, P = cfg.num_layers, cfg.num_encoder_layers, \
+        cfg.num_prefix_embeddings
+    rng = np.random.default_rng(0)
+    # 4 tag ids at the vocabulary's end (the weights are random: any id
+    # would do; the length and position are what the path sees)
+    tags = cfg.vocab_size - 1 - np.arange(4)
+    prompts = [[int(rng.choice(tags))] +
+               rng.integers(0, cfg.vocab_size - 4, int(n) - 1).tolist()
+               for n in rng.integers(2, 17, 12)]
+    # a prefill: the encoder's self-attention, and the decoder's self and
+    # cross attention, each layer; a decode step the decoder's two
+    launches, counts, _, t, peak = _counted_serve(
+        cfg, model, params, prompts, {"flash_attention": (E + 2 * L, 2 * L)},
+        AUDIO)
+
+    # the first prompt over random frames (the engine's zero frames make
+    # a zero encoder memory, over which every cross attention gives 0):
+    # every attention call held to the plain version, where one frame
+    # fewer in every cross attention must fail; the logits against the
+    # plain attention's, where the cross attention skipped must fail
+    # (one frame of 1,024 moves them less than the bf16 roundings do:
+    # the reading is recorded, PERF.md §6)
+    batch = _batch(prompts[0], _random_prefix(cfg, 1))
+    calls = _attn_call_readings(cfg, params, batch, AUDIO.cache_len,
+                                {"cross_one_frame_fewer": _one_frame_fewer})
+    logit = _logit_readings(cfg, params, batch, AUDIO.cache_len,
+                            {"cross_one_frame_fewer": (_one_frame_fewer,
+                                                       None),
+                             "cross_skipped": (_cross_skipped, None)})
+    emit({"phase": "serve_audio_checks", "rtol": SERVE_LOGIT_RTOL,
+          "attention_calls": calls, "logits": logit})
+    _call_checks(cfg.name, calls, ["cross_one_frame_fewer"])
+    check(calls["calls"] == {
+        f"non-causal, Sq {P} over Skv {P}": E,
+        f"causal, Sq {len(prompts[0])} over Skv {len(prompts[0])}": L,
+        f"non-causal, Sq {len(prompts[0])} over Skv {P}": L},
+        f"{cfg.name}: {calls['calls']} attention calls in a prefill")
+    check(logit["finite"], f"{cfg.name} prefill logits not finite")
+    check(logit["rel_l2"] <= SERVE_LOGIT_RTOL,
+          f"{cfg.name} prefill logits, kernel vs plain attention: |diff| / "
+          f"|plain| = {logit['rel_l2']} > {SERVE_LOGIT_RTOL}")
+    check(logit["fault_cross_skipped_rel_l2"] > SERVE_LOGIT_RTOL,
+          f"planted fault 'cross_skipped' passed the {cfg.name} logits "
+          f"check: {logit['fault_cross_skipped_rel_l2']} <= "
+          f"{SERVE_LOGIT_RTOL}")
+
+    attn_row["launches_serve_audio"] = launches["flash_attention"]
+    emit({"phase": "serve_audio", **info, "encoder_layers": E,
+          "frames": P,
+          "allocated_before_gb": held / 1e9, "serve_peak_gb": peak / 1e9,
+          **counts, "flash_attention_launches": launches["flash_attention"],
+          **_serve_metrics(prompts, t, AUDIO),
+          "logits_kernel_vs_plain_rel_l2": logit["rel_l2"],
+          "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "serve_audio_profile", **_serve_profiles(
+        model, params, prompts, AUDIO, torch.zeros_like(batch[
+            "prefix_emb"]))})
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -3881,6 +4227,8 @@ def main() -> None:
     phase_serve_moe(router_row, attn_row)
     phase_serve_rwkv(rwkv_row)
     phase_serve_hybrid(mamba_row, attn_row, router_row)
+    phase_serve_audio(attn_row)
+    phase_serve_vlm(attn_row)
     emit({"kernels": [kernel_row, attn_row, router_row, rwkv_row,
                       mamba_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

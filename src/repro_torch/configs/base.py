@@ -3,12 +3,10 @@ ModelConfig, registered under its --arch id.  The port's copy of
 ``repro.configs.base``: the dataclasses, ``param_counts`` and the input
 shapes are the reference's, field for field.
 
-The port registers the dense, MoE, ssm and hybrid families
-(``configs/__init__.py``).
-``get_config`` also answers the paper's MLP names with their
-``MLPConfig`` (``configs/paper_mlp.py``), as the reference's one
-registry does, and raises NotImplementedError for an architecture of a
-family the port does not run yet.
+The port registers every architecture of the reference
+(``configs/__init__.py``).  ``get_config`` also answers the paper's MLP
+names with their ``MLPConfig`` (``configs/paper_mlp.py``), as the
+reference's one registry does.
 """
 from __future__ import annotations
 
@@ -194,10 +192,6 @@ class ModelConfig:
 
 _REGISTRY: dict = {}
 
-# the reference's architectures of the families not ported yet
-# (vlm, audio)
-UNPORTED = ("llava-next-34b", "seamless-m4t-medium")
-
 
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
@@ -212,11 +206,6 @@ def get_config(name: str):
         return _REGISTRY[name]
     if name in paper_mlp.CONFIGS:
         return paper_mlp.get_config(name)
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} belongs to a family repro_torch does not run "
-            "yet (only the dense, MoE, ssm and hybrid families); see "
-            "ROADMAP.md, Queue 1 item 6")
     raise KeyError(f"unknown arch {name!r}; known: {list_configs()}")
 
 

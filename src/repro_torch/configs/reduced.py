@@ -1,9 +1,8 @@
-"""Reduced variants of the dense, MoE, ssm and hybrid architectures for
-CPU tests: 2 layers (the hybrid 4, one attention layer per period of
-2), d_model 256, <=4 experts, tiny vocab, float32.  Same code paths as
-the full configs.  The port's copy of ``repro.configs.reduced``, cut to
-the branches those families take (the modality branches come with the
-vlm and audio families)."""
+"""Reduced variants of each architecture for CPU tests: 2 layers (the
+hybrid 4, one attention layer per period of 2; an encoder-decoder also
+2 encoder layers), d_model 256, <=4 experts, 8 image rows or 16 frames,
+tiny vocab, float32.  Same code paths as the full configs.  The port's
+copy of ``repro.configs.reduced``."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, get_config
@@ -41,6 +40,10 @@ def reduced_config(name: str, **extra) -> ModelConfig:
                   expert_capacity_factor=8.0)
     if cfg.attn_type in ("swa", "local_global"):
         kw.update(window_size=16)
+    if cfg.modality == "vision_text":
+        kw.update(num_prefix_embeddings=8)
+    if cfg.is_encoder_decoder:
+        kw.update(num_encoder_layers=2, num_prefix_embeddings=16)
     if cfg.num_heads and cfg.num_heads == cfg.num_kv_heads:
         kw.update(num_kv_heads=4)  # keep MHA archs MHA
     kw.update(extra)

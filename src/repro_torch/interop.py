@@ -5,7 +5,9 @@ Both keep the same trees: the federation's clients stacked on a leading
 axis (``{"layer_i": {"kernel": [n, in, out], "bias": [n, out]}}``), and
 the LM's ``vfl_embedding`` / ``lm_head`` / ``final_norm`` /
 ``stack.scanned.sub_j...`` with a leading [n_groups] axis under
-``scanned``, so crossing over is a copy with no transposes.  Arrays
+``scanned`` (an encoder-decoder's ``encoder.stack`` and
+``encoder.final_norm`` the same way, its decode state's ``enc`` a plain
+leaf), so crossing over is a copy with no transposes.  Arrays
 cross as numpy (bfloat16 as ``ml_dtypes``' bfloat16, which is what
 ``np.asarray`` gives for a JAX bfloat16 array); nothing here imports
 JAX.

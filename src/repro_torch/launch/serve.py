@@ -1,10 +1,13 @@
 """Serving entry point: batched single-token decode against a KV
 cache.  The port of ``repro.launch.serve``.
 
-Any architecture of the dense, MoE, ssm or hybrid family (``--arch
-qwen2-7b``, ``--arch deepseek-moe-16b``, ``--arch rwkv6-1.6b``, ``--arch
-jamba-v0.1-52b``; mixtral-8x22b and the full 32-layer jamba do not fit
-one card).  On the GPU, at full width with random weights::
+Any architecture of the LM zoo (``--arch qwen2-7b``, ``--arch
+deepseek-moe-16b``, ``--arch rwkv6-1.6b``, ``--arch jamba-v0.1-52b``,
+``--arch llava-next-34b``, ``--arch seamless-m4t-medium``; mixtral-8x22b
+and the full 32-layer jamba do not fit one card).  An encoder-decoder
+(seamless) decodes over the zero encoder memory ``init_decode_state``
+makes, as the reference's ``launch/serve.py`` does.  On the GPU, at
+full width with random weights::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 

@@ -1,6 +1,7 @@
 """Attention: GQA/MHA with RoPE, QKV bias, logit softcap, full / sliding
--window / local+global variants and ring-buffer KV caches for windowed
-decode.  The port of ``repro.models.attention`` for the dense family.
+-window / local+global variants, bidirectional (encoder) and cross
+attention, and ring-buffer KV caches for windowed decode.  The port of
+``repro.models.attention``.
 
 ``_attend`` is a call into the hand-written ``flash_attention`` kernel
 on CUDA and into its plain version on the CPU
@@ -8,14 +9,17 @@ on CUDA and into its plain version on the CPU
 as the kernel's mask.  The reference's ``_chunked_attend`` and
 ``_pick_chunk`` only keep XLA from materialising the [Q, S] scores of a
 long prefill; the kernel never materialises them, so they are not
-ported.  Bidirectional (encoder) and cross attention
-(``kv_override``) come with the audio family.
+ported.
 
 Prefill masks by index: its positions are consecutive (every caller
 passes ``arange(S)``), so index i sees index j exactly where position i
 sees position j, and the kernel, given no position tensors, bounds its
 key loop by the causal and window limits.  Decode masks by the ring
-cache's positions.
+cache's positions.  The encoder calls ``attn_apply`` with
+``causal=False``; cross attention (``kv_override``: keys and values
+projected from the encoder's output, no RoPE on q or k) also runs with
+``causal=False`` and no positions, a mask of every key valid, which is
+the reference's ``kpos = arange(Skv)`` under ``causal=False``.
 
 ``attend`` is the attention function, with ``flash_attention``'s
 signature and that function by default; the plain version, or a
@@ -66,20 +70,25 @@ def _attend(q, k, v, qpos, kpos, *, causal, window, cap, scale,
 
 
 def attn_apply(params, x, positions, cfg, *, layer_window=None, causal=True,
-               return_kv=False, attend=None):
+               kv_override=None, return_kv=False, attend=None):
     """Full-sequence (prefill) attention.  positions: [S] int32,
     consecutive (the mask is by index; module doc).
 
     layer_window: None -> full attention; int -> sliding window.
+    kv_override: [B, Skv, D] encoder output for cross attention (keys
+        and values computed from it instead of x; no RoPE; pass
+        ``causal=False``).
     return_kv: also return (k, v) post-rope for prefill cache population.
     """
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, _ = x.shape
+    kv_src = x if kv_override is None else kv_override
     q = _split_heads(L.dense(params["wq"], x), H, hd)
-    k = _split_heads(L.dense(params["wk"], x), KV, hd)
-    v = _split_heads(L.dense(params["wv"], x), KV, hd)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(L.dense(params["wk"], kv_src), KV, hd)
+    v = _split_heads(L.dense(params["wv"], kv_src), KV, hd)
+    if kv_override is None:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, None, None, causal=causal, window=layer_window,
                   cap=cfg.attn_logit_softcap, scale=hd ** -0.5,
                   attend=attend)

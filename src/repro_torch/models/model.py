@@ -1,12 +1,16 @@
 """Top-level Model: config -> init / forward / prefill / decode.  The
-port of ``repro.models.model`` for the decoder-only text families
-(dense, MoE, ssm, hybrid).  The paper's MLPs
+port of ``repro.models.model`` for every LM family: decoder-only (dense,
+MoE, ssm, hybrid), the vlm family's decoder over image rows before the
+text (``prefix_emb``), and the audio family's encoder-decoder (frames
+through the encoder, ``_encode``; the decoder's cross attention over
+its output, kept in the decode state as ``"enc"``).  The paper's MLPs
 run through ``PaperMLP`` (stacked clients), which the federation builds
 itself.
 
 Parameters are a nested dict of tensors in the reference's tree
-(``vfl_embedding``, ``stack``, ``final_norm``, ``lm_head``), so weights
-cross over by key (``repro_torch.interop``).  Everything here is
+(``vfl_embedding``, ``stack``, ``final_norm``, ``lm_head``, and
+``encoder`` with its own ``stack`` and ``final_norm``), so weights cross
+over by key (``repro_torch.interop``).  Everything here is
 forward-only, under ``torch.no_grad()``: the LM's training path
 (``launch/train.py``) is not ported yet.
 
@@ -34,14 +38,14 @@ def padded_vocab(v: int) -> int:
 
 
 class Model:
-    """Decoder-only LM assembled from a ModelConfig."""
+    """Decoder-only or encoder-decoder LM assembled from a ModelConfig."""
 
     def __init__(self, cfg, **hooks):
-        if cfg.is_encoder_decoder or cfg.modality != "text":
-            raise T._unported(f"the {cfg.family!r} family ({cfg.name})")
         self.cfg = cfg
         self.dtype = L.dtype_of(cfg.dtype)
         self.kinds = T.layer_kinds(cfg)
+        self.enc_kinds = T.encoder_kinds(cfg) if cfg.is_encoder_decoder \
+            else []
         self.vocab = padded_vocab(cfg.vocab_size)
         unknown = set(hooks) - {"attend", "route", "wkv", "sscan"}
         if unknown:
@@ -66,6 +70,13 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                              self.vocab, dtype=self.dtype)
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "stack": T.stack_init(generator, cfg, self.enc_kinds,
+                                      self.dtype),
+                "final_norm": L.norm_init(cfg.d_model, cfg.norm_type,
+                                          generator.device),
+            }
         return params
 
     # ------------------------------------------------------------------
@@ -74,16 +85,43 @@ class Model:
         return torch.arange(n, dtype=torch.int32, device=device)
 
     @torch.no_grad()
+    def _encode(self, params, prefix_emb):
+        """Encoder pass (audio family): frame embeddings [B, F, D] ->
+        memory [B, F, D] in the model's dtype."""
+        h = prefix_emb.to(self.dtype)
+        pos = self._positions(h.shape[1], h.device)
+        h, _ = T.stack_apply(params["encoder"]["stack"], h, pos, self.cfg,
+                             self.enc_kinds, self.hooks)
+        return L.apply_norm(params["encoder"]["final_norm"], h,
+                            self.cfg.norm_type)
+
+    def _inputs(self, params, batch):
+        """(decoder input [B, P + S, D] or [B, S, D], encoder memory or
+        None) of a batch: an encoder-decoder encodes ``prefix_emb``; a
+        vlm puts it before the text (where the batch has one)."""
+        cfg = self.cfg
+        enc = prefix = None
+        if cfg.is_encoder_decoder:
+            enc = self._encode(params, batch["prefix_emb"])
+        elif cfg.modality != "text" and "prefix_emb" in batch:
+            prefix = batch["prefix_emb"]
+        return T.embed_input(params, batch["tokens"], cfg,
+                             prefix_emb=prefix), enc
+
+    @torch.no_grad()
     def forward_logits(self, params, batch):
-        """batch: {'tokens': [B,S]}.  Returns (logits [B,S,V] float32,
+        """batch: {'tokens': [B,S_text]} (+ 'prefix_emb': [B,P,D]).
+        Returns (logits [B,S_text,V] float32 at the text positions,
         aux)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        h = T.embed_input(params, tokens, cfg)
-        positions = self._positions(h.shape[1], h.device)
+        S_text = batch["tokens"].shape[1]
+        h, enc = self._inputs(params, batch)
+        S_total = h.shape[1]
+        positions = self._positions(S_total, h.device)
         h, aux = T.stack_apply(params["stack"], h, positions, cfg,
-                               self.kinds, self.hooks)
-        h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
+                               self.kinds, self.hooks, enc)
+        h = L.apply_norm(params["final_norm"], h[:, S_total - S_text:, :],
+                         cfg.norm_type)
         return T.logits_from_hidden(params, h, cfg), aux
 
     # ------------------------------------------------------------------
@@ -95,20 +133,21 @@ class Model:
         [B,1,V], decode state ready for decode_step at position
         seq_len)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B = tokens.shape[0]
-        h = T.embed_input(params, tokens, cfg)
+        B = batch["tokens"].shape[0]
+        h, enc = self._inputs(params, batch)
         S_total = h.shape[1]
         cache_len = cache_len or S_total
         positions = self._positions(S_total, h.device)
         h, cache = T.stack_prefill(params["stack"], h, positions, cfg,
                                    self.kinds, B, cache_len, self.dtype,
-                                   self.hooks)
+                                   self.hooks, enc)
         h = L.apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm_type)
         logits = T.logits_from_hidden(params, h, cfg)
         state = {"cache": cache,
                  "position": torch.full((B,), S_total, dtype=torch.int32,
                                         device=h.device)}
+        if cfg.is_encoder_decoder:
+            state["enc"] = enc
         return logits, state
 
     # ------------------------------------------------------------------
@@ -117,17 +156,24 @@ class Model:
     def init_decode_state(self, batch_size, seq_len, prefill_len=None,
                           device=None):
         """Empty caches and positions for ``batch_size`` slots of
-        ``seq_len``, on ``device``: CUDA unless the caller names another
+        ``seq_len`` (and, for an encoder-decoder, a zero encoder memory
+        ``"enc"``), on ``device``: CUDA unless the caller names another
         (raises without a card, as the rest of the port does)."""
         from repro_torch.core.protocol import resolve_device
+        cfg = self.cfg
         device = resolve_device(device)
-        return {
-            "cache": T.stack_init_cache(self.cfg, self.kinds, batch_size,
+        state = {
+            "cache": T.stack_init_cache(cfg, self.kinds, batch_size,
                                         seq_len, self.dtype, device),
             "position": torch.full((batch_size,),
                                    prefill_len if prefill_len is not None
                                    else 0, dtype=torch.int32, device=device),
         }
+        if cfg.is_encoder_decoder:
+            state["enc"] = torch.zeros(
+                (batch_size, cfg.num_prefix_embeddings, cfg.d_model),
+                dtype=self.dtype, device=device)
+        return state
 
     @torch.no_grad()
     def decode_step(self, params, state, tokens):
@@ -138,7 +184,7 @@ class Model:
         pos = state["position"]
         h, new_cache = T.stack_decode(params["stack"], h, pos, cfg,
                                       self.kinds, state["cache"],
-                                      self.hooks)
+                                      self.hooks, state.get("enc"))
         h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
         logits = T.logits_from_hidden(params, h, cfg)
         new_state = dict(state)

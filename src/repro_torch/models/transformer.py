@@ -1,9 +1,11 @@
-"""Decoder stacks assembled from a ModelConfig: the port of
-``repro.models.transformer`` for the decoder-only text families: the
-attention, Mamba and RWKV6 mixers, and the dense, layer-0 dense
-(``dense0``), MoE and RWKV channel-mix (``rwkv_cm``) FFNs (the dense,
-MoE, ssm and hybrid families).  Cross attention (the encoder-decoder
-audio family) raises NotImplementedError (ROADMAP.md, Queue 1 item 6).
+"""Decoder and encoder stacks assembled from a ModelConfig: the port of
+``repro.models.transformer``: the attention, Mamba and RWKV6 mixers,
+cross attention over an encoder's output (``kind["cross"]``, the audio
+family), and the dense, layer-0 dense (``dense0``), MoE and RWKV
+channel-mix (``rwkv_cm``) FFNs.  Every block and stack function takes
+the encoder's output as ``enc`` (None: no cross attention, as in the
+reference); decode recomputes the cross keys and values from ``enc`` at
+every step, as the reference does.
 
 Layer stacks keep the reference's (prefix, periodic-group) form and its
 parameter tree: the periodic part lives under ``"scanned"`` with a
@@ -12,9 +14,11 @@ packages with no reshapes.  Where the reference ``lax.scan``s over the
 groups, the port runs a Python loop over that axis.
 
 The De-VertiFL input block runs on one device here: ``embed_input`` is
-the plain lookup of the reference without a client mesh.  The
-multi-client ``exchange_features`` path (``shard_map`` over the
-embedding's client-sharded d_model) is not ported yet.
+the plain lookup of the reference without a client mesh, with the vlm
+family's image rows (``prefix_emb``) before the text.  The multi-client
+``exchange_features`` path (``shard_map`` over the embedding's
+client-sharded d_model) is not ported yet, nor is the LM's training
+path (ROADMAP.md, Queue 1 item 6).
 
 ``hooks`` (block and stack functions) holds the functions that stand
 in for the kernels, each under its keyword and None for the kernel:
@@ -40,9 +44,8 @@ from repro_torch.tree import tree_map
 
 def _unported(what):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (only the decoder-only "
-        "text families: dense, MoE, ssm and hybrid); see ROADMAP.md, "
-        "Queue 1 item 6")
+        f"{what} is not ported to repro_torch yet (only the reference's "
+        "block kinds); see ROADMAP.md, Queue 1 item 6")
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +78,12 @@ def layer_kinds(cfg):
     return kinds
 
 
+def encoder_kinds(cfg):
+    return [{"mixer": "attn", "ffn": "dense", "window": None,
+             "cross": False, "causal": False}
+            for _ in range(cfg.num_encoder_layers)]
+
+
 def periodic_split(kinds):
     """Return (prefix_len, period) decomposing kinds into an irregular
     prefix followed by a periodic tail."""
@@ -100,8 +109,6 @@ def _check_kind(kind):
         raise _unported(f"the {kind['mixer']!r} mixer")
     if kind["ffn"] not in _FFNS:
         raise _unported(f"the {kind['ffn']!r} FFN")
-    if kind["cross"]:
-        raise _unported("cross attention (encoder-decoder)")
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +124,9 @@ def block_init(generator, cfg, kind, dtype):
         p.update(S.mamba_init(generator, cfg, dtype))
     elif kind["mixer"] == "rwkv":
         p.update(S.rwkv_init(generator, cfg, dtype))
+    if kind["cross"]:
+        p["cross_norm"] = L.norm_init(D, cfg.norm_type, dev)
+        p["cross"] = A.attn_init(generator, cfg, dtype)
     p["ffn_norm"] = L.norm_init(D, cfg.norm_type, dev)
     if kind["ffn"] == "moe":
         p["moe"] = M.moe_init(generator, cfg, dtype)
@@ -137,7 +147,17 @@ def _ffn(p, h2, cfg, kind, hooks, with_aux=False, x_prev=None):
     return L.mlp_apply(p["ffn"], h2, cfg.act), None
 
 
-def block_apply(p, x, positions, cfg, kind, hooks=None):
+def _cross(p, x, positions, cfg, kind, hooks, enc):
+    """x plus the block's cross attention over ``enc`` (x unchanged
+    where the kind has none or ``enc`` is None, as in the reference)."""
+    if not kind["cross"] or enc is None:
+        return x
+    hc = L.apply_norm(p["cross_norm"], x, cfg.norm_type)
+    return x + A.attn_apply(p["cross"], hc, positions, cfg, causal=False,
+                            kv_override=enc, attend=hooks.get("attend"))
+
+
+def block_apply(p, x, positions, cfg, kind, hooks=None, enc=None):
     """Full-sequence block. Returns (x, aux_loss); aux is 0 without MoE."""
     _check_kind(kind)
     hooks = hooks or {}
@@ -151,7 +171,7 @@ def block_apply(p, x, positions, cfg, kind, hooks=None):
         y = S.mamba_apply(p, h, cfg, sscan=hooks.get("sscan"))
     elif kind["mixer"] == "rwkv":
         y = S.rwkv_time_mix(p, h, cfg, wkv=hooks.get("wkv"))
-    x = x + y
+    x = _cross(p, x + y, positions, cfg, kind, hooks, enc)
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
     y, aux = _ffn(p, h2, cfg, kind, hooks, with_aux=True)
     if aux is None:
@@ -160,7 +180,7 @@ def block_apply(p, x, positions, cfg, kind, hooks=None):
 
 
 def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
-                  hooks=None):
+                  hooks=None, enc=None):
     """Full-sequence forward that also emits the decode cache for this
     block (forward-only: the inference-prefill path)."""
     _check_kind(kind)
@@ -185,7 +205,7 @@ def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
         # the normed last rows: what decode's token shift reads
         y, cache["rwkv"] = S.rwkv_time_mix(p, h, cfg, return_state=True,
                                            wkv=hooks.get("wkv"))
-    x = x + y
+    x = _cross(p, x + y, positions, cfg, kind, hooks, enc)
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
     if kind["ffn"] == "rwkv_cm":
         cache["rwkv"]["x_prev_cm"] = h2[:, -1, :].clone()
@@ -203,9 +223,10 @@ def block_init_cache(cfg, kind, batch, seq_len, dtype, device=None):
         return {"rwkv": S.rwkv_init_state(cfg, batch, dtype, device)}
 
 
-def block_decode(p, x, position, cfg, kind, cache, hooks=None):
+def block_decode(p, x, position, cfg, kind, cache, hooks=None, enc=None):
     """One-token decode. Returns (x, cache), the cache written in
-    place."""
+    place; the cross attention's keys and values are projected from
+    ``enc`` anew (no cache)."""
     _check_kind(kind)
     hooks = hooks or {}
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
@@ -223,7 +244,7 @@ def block_decode(p, x, position, cfg, kind, cache, hooks=None):
                             state=st["wkv"], state_out=st["wkv"],
                             wkv=hooks.get("wkv"))
         st["x_prev_tm"].copy_(h[:, -1, :])
-    x = x + y
+    x = _cross(p, x + y, position[:, None], cfg, kind, hooks, enc)
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
     st = cache.get("rwkv")
     y = _ffn(p, h2, cfg, kind, hooks,
@@ -285,18 +306,18 @@ def stack_init(generator, cfg, kinds, dtype):
     return params
 
 
-def stack_apply(params, x, positions, cfg, kinds, hooks=None):
+def stack_apply(params, x, positions, cfg, kinds, hooks=None, enc=None):
     layout = StackLayout(cfg, kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(layout.prefix):
         x, a = block_apply(params[f"layer_{i}"], x, positions, cfg, kinds[i],
-                           hooks)
+                           hooks, enc)
         aux = aux + a
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         for j, kind in enumerate(layout.group_kinds):
             x, a = block_apply(gparams[f"sub_{j}"], x, positions, cfg, kind,
-                               hooks)
+                               hooks, enc)
             aux = aux + a
     return x, aux
 
@@ -321,13 +342,13 @@ def stack_init_cache(cfg, kinds, batch, seq_len, dtype, device=None):
 
 
 def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
-                  dtype, hooks=None):
+                  dtype, hooks=None, enc=None):
     layout = StackLayout(cfg, kinds)
     cache = {}
     for i in range(layout.prefix):
         x, cache[f"layer_{i}"] = block_prefill(
             params[f"layer_{i}"], x, positions, cfg, kinds[i], batch,
-            cache_len, dtype, hooks)
+            cache_len, dtype, hooks, enc)
     groups = []
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
@@ -335,41 +356,46 @@ def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
         for j, kind in enumerate(layout.group_kinds):
             x, newc[f"sub_{j}"] = block_prefill(
                 gparams[f"sub_{j}"], x, positions, cfg, kind, batch,
-                cache_len, dtype, hooks)
+                cache_len, dtype, hooks, enc)
         groups.append(newc)
     if groups:
         cache["scanned"] = tree_map(lambda *xs: torch.stack(xs), *groups)
     return x, cache
 
 
-def stack_decode(params, x, position, cfg, kinds, cache, hooks=None):
+def stack_decode(params, x, position, cfg, kinds, cache, hooks=None,
+                 enc=None):
     """One-token decode over the stack; every layer's cache is written
     in place and ``cache`` is returned."""
     layout = StackLayout(cfg, kinds)
     for i in range(layout.prefix):
         x, cache[f"layer_{i}"] = block_decode(
             params[f"layer_{i}"], x, position, cfg, kinds[i],
-            cache[f"layer_{i}"], hooks)
+            cache[f"layer_{i}"], hooks, enc)
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         gcache = _group(cache["scanned"], g)
         for j, kind in enumerate(layout.group_kinds):
             x, _ = block_decode(gparams[f"sub_{j}"], x, position, cfg, kind,
-                                gcache[f"sub_{j}"], hooks)
+                                gcache[f"sub_{j}"], hooks, enc)
     return x, cache
 
 
 # ---------------------------------------------------------------------------
 # De-VertiFL input block and output head
 # ---------------------------------------------------------------------------
-def embed_input(params, ids, cfg):
+def embed_input(params, ids, cfg, prefix_emb=None):
     """Token embedding on one device: the reference's ``embed_input``
-    without a client mesh (``transformer.py:406-410``).  Returns
-    [B, S, D], scaled by sqrt(d_model) where the config has a final
-    softcap (gemma2), in the table's dtype."""
+    without a client mesh (``transformer.py:406-410``).  ``prefix_emb``
+    [B, P, D] (the vlm family's image rows), cast to the table's dtype,
+    goes before the text.  Returns [B, P + S, D], scaled by sqrt(d_model)
+    where the config has a final softcap (gemma2), in the table's
+    dtype."""
     emb_scale = cfg.d_model ** 0.5 if cfg.final_logit_softcap else 1.0
     key = "vfl_embedding" if cfg.vfl.enabled else "embedding"
     h = L.embed(params[key], ids)
+    if prefix_emb is not None:
+        h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
     return h * torch.tensor(emb_scale, dtype=h.dtype, device=h.device)
 
 

@@ -13,6 +13,17 @@ Greedy or temperature sampling per request; temperature sampling draws
 from a ``torch.Generator`` seeded from ``seed`` (the reference's
 ``jax.random`` key gives other draws from the same seed).  The engine
 counts its prefills and decode steps (``prefills``, ``decode_steps``).
+
+The vlm and audio families get a zero ``prefix_emb`` of
+[1, num_prefix_embeddings, d_model] at every admission, as the
+reference's engine passes (the frontends are stubs in both packages):
+the vlm's image rows go before the prompt in the decoder's cache, the
+audio family's frames through its encoder, whose output the slot keeps
+in the state's ``"enc"`` (zero at construction, from
+``init_decode_state``).  ``submit`` counts a vlm request's image rows
+against ``cache_len``; the reference counts only the prompt and the new
+tokens, and its prefill then keeps only the last ``cache_len`` positions,
+dropping image rows (ROADMAP.md, "Documented differences").
 """
 from __future__ import annotations
 
@@ -59,15 +70,28 @@ class ServingEngine:
         self._last_tok = torch.zeros((max_batch, 1), dtype=torch.int32)
         self.prefills = 0
         self.decode_steps = 0
+        cfg = model.cfg
+        # the prefix every admission passes, and the decoder positions
+        # it takes (a vlm's image rows; an encoder's frames take none)
+        self._prefix = None
+        self._prefix_rows = 0
+        if cfg.is_encoder_decoder or cfg.modality != "text":
+            self._prefix = torch.zeros(
+                (1, cfg.num_prefix_embeddings, cfg.d_model),
+                dtype=model.dtype, device=self.device)
+            if not cfg.is_encoder_decoder:
+                self._prefix_rows = cfg.num_prefix_embeddings
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
-        if not req.prompt or \
-                len(req.prompt) + req.max_new_tokens > self.cache_len:
+        need = self._prefix_rows + len(req.prompt) + req.max_new_tokens
+        if not req.prompt or need > self.cache_len:
+            after = f" after {self._prefix_rows} image rows" \
+                if self._prefix_rows else ""
             raise ValueError(
                 f"request {req.uid}: a prompt of {len(req.prompt)} tokens "
-                f"and {req.max_new_tokens} new tokens must be non-empty "
-                f"and fit the {self.cache_len}-slot cache")
+                f"and {req.max_new_tokens} new tokens{after} must be "
+                f"non-empty and fit the {self.cache_len}-slot cache")
         self.queue.append(req)
 
     def _insert_state(self, slot_idx, single_state, first_tok):
@@ -85,6 +109,8 @@ class ServingEngine:
                 batched[slot_idx] = single[0]
         ins(self.state["cache"], single_state["cache"], False)
         self.state["position"][slot_idx] = single_state["position"][0]
+        if "enc" in single_state:
+            self.state["enc"][slot_idx] = single_state["enc"][0]
         self._last_tok[slot_idx, 0] = first_tok
 
     def _admit(self):
@@ -94,6 +120,8 @@ class ServingEngine:
             req = self.queue.popleft()
             batch = {"tokens": torch.tensor([req.prompt], dtype=torch.int64,
                                             device=self.device)}
+            if self._prefix is not None:
+                batch["prefix_emb"] = self._prefix
             logits, st = self.model.prefill(self.params, batch,
                                             cache_len=self.cache_len)
             self.prefills += 1

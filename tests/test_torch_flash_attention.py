@@ -98,6 +98,36 @@ def test_plain_version_matches_pallas_and_oracle(ref, B, H, KV, S, hd,
     allclose(ours, np.asarray(oracle.astype(jnp.float32)), tol)
 
 
+# the audio family's cross attention: Sq decoder queries over Skv encoder
+# frames, non-causal, MHA (group 1) at hd 64
+CROSS_CASES = [(2, 4, 4, 16, 32, 64), (1, 4, 4, 128, 256, 64)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,hd", CROSS_CASES)
+def test_cross_shapes_match_pallas_and_oracle(ref, B, H, KV, Sq, Skv, hd,
+                                              bf16):
+    """Sq != Skv with causal=False and no positions (every key valid):
+    the plain version against the Pallas kernel in interpret mode and its
+    oracle, as test_plain_version_matches_pallas_and_oracle does."""
+    jnp = ref.jnp
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else \
+        (jnp.float32, torch.float32)
+    q, k, v = _qkv(15, B, H, KV, Sq, Skv, hd)
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    qt, kt, vt = (_torch(np.asarray(a.astype(jnp.float32)), tdt)
+                  for a in (qj, kj, vj))
+    ours = flash_attention(qt, kt, vt, causal=False)
+    assert ours.dtype == tdt and ours.shape == qt.shape
+    pallas = ref.flash.flash_attention(qj, kj, vj, causal=False, bq=64,
+                                       bk=64)
+    oracle = ref.flash.flash_attention_ref(qj, kj, vj, causal=False)
+    tol = 2e-2 if bf16 else 2e-5
+    ours = ours.float().numpy()
+    allclose(ours, np.asarray(pallas.astype(jnp.float32)), tol)
+    allclose(ours, np.asarray(oracle.astype(jnp.float32)), tol)
+
+
 def _ring(B, size, pos, rng):
     """Per-row ring-buffer slot positions after decoding up to ``pos[b]``
     (inclusive): slot s holds the newest position p <= pos[b] with
@@ -251,6 +281,22 @@ def test_tensor_core_emulation_masks_like_the_plain_version():
     assert chip_smoke().attn_excess(out, plain) <= 1.0
 
 
+@pytest.mark.parametrize("Sq,Skv", [(16, 1024), (100, 1024), (1024, 1024),
+                                    (1, 1024)])
+def test_tensor_core_emulation_non_causal(Sq, Skv):
+    """The wgmma route's numerics at the audio family's non-causal shapes
+    (cross attention of Sq queries over 1,024 frames, the encoder's
+    1,024 over 1,024, MHA at hd 64, no positions: every key valid) meet
+    chip_smoke.py's element-by-element limit against the plain
+    version."""
+    q, k, v = (_torch(a, torch.bfloat16)
+               for a in _qkv(16, 1, 2, 2, Sq, Skv, 64))
+    plain = flash_attention_ref(q.float(), k.float(), v.float(),
+                                causal=False)
+    out = tensor_core_emulation(q, k, v, causal=False)
+    assert chip_smoke().attn_excess(out, plain) <= 1.0
+
+
 def _decode_inputs(seed, B, H, KV, size, hd, lo, hi):
     """A decode step over a ring of ``size`` slots after positions drawn
     in [lo, hi): partly written (slots at -1) or wrapped."""
@@ -278,6 +324,25 @@ def test_split_k_combine_equals_plain_version(n_splits, lo, hi):
             assert bool((l == 0).any()), "expected a split that sees nothing"
         kernel_close(combine_ref(m, l, o),
                      flash_attention_ref(q, k, v, **pos, **kw))
+
+
+@pytest.mark.parametrize("Sq,causal", [(1, False), (16, False), (16, True),
+                                       (64, False)])
+def test_split_k_without_positions_equals_plain_version(Sq, causal):
+    """The split-K routes at the audio family's calls of at most 64
+    rows, with no position tensors: the cross attention (non-causal,
+    Sq = 1 at decode, up to 64 at prefill, over 1,024 frames in 4
+    splits) and the decoder's causal self-attention prefill (Sq = Skv,
+    the later splits seeing nothing)."""
+    Skv = Sq if causal else 1024
+    q, k, v = (_torch(a) for a in _qkv(17, 2, 4, 4, Sq, Skv, 64))
+    n = ops.num_splits(Skv)
+    assert n == (1 if causal else 4)
+    for n_splits in {n, 4}:
+        m, l, o = decode_partials_ref(q, k, v, causal=causal,
+                                      n_splits=n_splits)
+        kernel_close(combine_ref(m, l, o),
+                     flash_attention_ref(q, k, v, causal=causal))
 
 
 def test_split_k_does_not_depend_on_the_batch():
@@ -312,6 +377,14 @@ def test_combine_of_nothing_is_zero():
     (65, 1, 128, torch.bfloat16, "wgmma"),
     (10, 7, 64, torch.bfloat16, "wgmma"),            # 70 rows
     (1024, 7, 128, torch.bfloat16, "wgmma"),         # qwen2-7b prefill
+    # seamless (group 1, hd 64): a prompt of up to 64 tokens, self or
+    # cross attention, prefills on split-K; the encoder on wgmma
+    (2, 1, 64, torch.bfloat16, "split_k_wgmma"),
+    (16, 1, 64, torch.bfloat16, "split_k_wgmma"),
+    (64, 1, 64, torch.bfloat16, "split_k_wgmma"),
+    (100, 1, 64, torch.bfloat16, "wgmma"),
+    (1024, 1, 64, torch.bfloat16, "wgmma"),          # seamless encoder
+    (3392, 7, 128, torch.bfloat16, "wgmma"),         # llava prefill
     (1024, 7, 128, torch.float32, "cuda_cores"),
     (700, 2, 256, torch.bfloat16, "cuda_cores"),     # gemma2 prefill
 ])
@@ -339,6 +412,8 @@ def test_kernel_matches_plain_version_on_the_card(dtype):
             *[(B, H, KV, S, S, hd, c, w, cp)
               for B, H, KV, S, hd, c, w, cp in KERNEL_CASES],
             (1, 8, 4, 100, 77, 256, False, None, 0.0),
+            (1, 16, 16, 16, 1024, 64, False, None, 0.0),
+            (1, 16, 16, 100, 1024, 64, False, None, 0.0),
             (1, 8, 4, 300, 300, 256, True, 100, 30.0),
             (1, 28, 4, 300, 300, 64, True, None, 0.0),
             (1, 28, 4, 300, 300, 128, True, None, 0.0),

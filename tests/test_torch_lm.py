@@ -15,8 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import INPUT_SHAPES, get_config
-from repro_torch.configs.base import UNPORTED
+from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
 from repro_torch.configs.reduced import reduced_config
 from repro_torch.interop import (
     params_from_numpy, params_to_numpy, state_to_numpy)
@@ -112,21 +111,19 @@ def test_full_qwen2_7b_is_the_cell_size():
         (28, 3584, 28, 4, 128, 18944, "bfloat16")
 
 
-def test_unported_families_raise_and_input_shapes_match(ref):
-    """The vlm and audio families are what is left unported: their
-    archs and a cross-attention (encoder-decoder) block raise."""
-    assert sorted(UNPORTED) == ["llava-next-34b", "seamless-m4t-medium"]
-    for name in UNPORTED:
-        assert name in ref.configs.list_configs()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            get_config(name)
+def test_every_reference_arch_is_listed_and_input_shapes_match(ref):
+    """Every architecture of the reference is one of the port's (the
+    paper's MLPs by their own ``MLPConfig``), each LM with the
+    reference's config, and the input shapes are the reference's."""
+    assert list_configs() == sorted(ref.configs.list_configs())
+    lms = [n for n in list_configs() if not n.startswith("paper-mlp")]
+    assert {"llava-next-34b", "seamless-m4t-medium"} <= set(lms)
+    for name in lms:
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(ref.configs.get_config(name)), name
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v)
          for k, v in ref.configs.INPUT_SHAPES.items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T.block_init(torch.Generator(), reduced_config("qwen2-7b"),
-                     {"mixer": "attn", "ffn": "dense", "window": None,
-                      "cross": True}, torch.float32)
 
 
 # ---------------------------------------------------------------------------
