@@ -26,7 +26,9 @@ Phases, each printing one JSON line:
               frames, its cross decode at B = 8 over 1024 frames and
               self decode over 128 ring slots, 16 heads of 64, group 1;
               llava-next-34b prefill at S = 3392 and decode at B = 8
-              over 3456 ring slots, group 7) and at the Pallas options
+              over 3456 ring slots, group 7), at the training path's
+              (qwen1.5-0.5b's B = 8 at S = 256, 16 heads of 64;
+              seamless's encoder at B = 2) and at the Pallas options
               the path does not use (window, softcap, hd 64 and 256,
               float32, tails of rows and keys), element by element
               against the plain float32 result, each case naming the
@@ -40,7 +42,8 @@ Phases, each printing one JSON line:
               holds moe_router against its plain version at the MoE
               serving paths' shapes (T = 8 a decode step, 1326 and 1536
               prefills, deepseek's E = 64, k = 6; jamba's E = 16, k = 2
-              at T = 8 and 1326), at mixtral's E = 8, k = 2, at the
+              at T = 8 and 1326), at the training path's (deepseek T =
+              2048, jamba T = 512), at mixtral's E = 8, k = 2, at the
               limits (E = 256, k = 8; k = E), at T = 1 and tails, on
               exact ties and on rows that underflow; four planted faults
               (first and k-th picks swapped, the Pallas kernel's
@@ -56,7 +59,8 @@ Phases, each printing one JSON line:
               serving path's shapes (rwkv6-1.6b prefill B = 1, T = 1326
               and 1536, H = 32, hd = 64, on the chunked route; decode B
               = 8, T = 1 from a random state, on the sequential route)
-              and beyond it (hd 128, bf16 inputs, B = 4 at T = 700, w
+              and beyond it (hd 128, bf16 inputs, B = 4 at T = 700, the
+              training path's B = 8 at T = 256, w
               with exact zeros and 1 - 2^-24, T = 46 and 64 through
               both routes: a chunk short and one whole), each case
               naming its route, element by element against the plain
@@ -81,7 +85,8 @@ Phases, each printing one JSON line:
               mamba_scan_fused, the serving path's route (dt, x, B, C,
               A in, a and bx formed in the kernel), against its plain
               version: jamba's bf16 prefills and decode, a float32
-              model, N = 8 with D = 1000, D = 8190, B = 2; a split run
+              model, N = 8 with D = 1000, D = 8190, B = 2, the training
+              path's B = 2 at T = 256; a split run
               and reruns bitwise, the state in place; four planted
               faults (dt one step late, y read from h_{t-1}, the input
               h ignored, the last channel tile short); times beside the
@@ -273,6 +278,34 @@ Phases, each printing one JSON line:
               last row must fail), the logits against the plain
               attention's (that cut and the first image row changed
               must fail); profiles
+ 21. train_lm
+              LM training, qwen1.5-0.5b at full width and depth (24
+              layers, d_model 1024, 16 heads of 64, vocab 151,936, bf16,
+              remat): one forward and backward of Model.loss at the
+              reference CLI's batch 8 x 256 through flash_attention (its
+              autograd Function: the kernel forward, a PyTorch backward)
+              held leaf by leaf to the same through the plain attention
+              (relative L2), where the kernel's output detached and a
+              backward recomputed with the causal mask flipped must
+              fail; flash_attention launched 48 times in it (24, and 24
+              in the remat recompute); 2 steps rerun bitwise; 10 timed
+              steps (steps/s, tokens/s, peak GB) and one under
+              torch.profiler; make_federated_train_step over 2 pods with
+              FedAvg every 2 steps, 4 steps: the replicas bitwise equal
+              after each FedAvg, pod 0's first step bitwise
+              make_train_step on its slice; then the main path, python
+              -m repro_torch.launch.train's main with --vocab 512 at its
+              defaults (50 steps, lr 3e-4, 10 warmup), every count set to
+              0 just before and read just after (flash_attention 2,400,
+              no other kernel), the last loss at least 0.5 below the
+              first; then one forward and backward of deepseek-moe-16b (2
+              layers: moe_router), rwkv6-1.6b (2 layers: rwkv6_scan),
+              jamba-v0.1-52b (2 Mamba layers, one MoE: mamba_scan_fused
+              and moe_router) and seamless-m4t-medium (full size over
+              random frames: non-causal flash_attention), each at full
+              width, through the kernels against the plain version of
+              the family's kernel, with its output detached as the
+              planted fault, and each kernel's launches
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
@@ -869,6 +902,13 @@ def phase_attn_kernel() -> dict:
         ("llava decode B=8 over 3456 ring slots",
          (B_dec, 56, 8, 1, VLM.cache_len, 128, bf16, True),
          {"q_pos": qpos_l, "k_pos": ring_l}, True),
+        # the training path (phase train_lm): qwen1.5-0.5b's batch of 8
+        # at S = 256, 16 heads of 64; seamless's encoder over a batch of 2
+        ("training prefill B=8, S=256 (qwen1.5-0.5b)",
+         (8, 16, 16, 256, 256, 64, bf16, True), {}, False),
+        ("training encoder B=2 over 1024 frames (seamless)",
+         (2, 16, 16, frames, frames, 64, bf16, True), {"causal": False},
+         False),
         ("decode float32", (B_dec, 28, 4, 1, slots, 128, f32, True),
          {"q_pos": qpos_dec, "k_pos": ring}, False),
         ("window 256", (1, 28, 4, 1024, 1024, 128, bf16, False),
@@ -1126,6 +1166,9 @@ def phase_moe_router() -> dict:
              ("prefill T=1536", rand(1536, 64), 6, True),
              ("jamba decode T=8, E=16 k=2", rand(8, 16), 2, True),
              ("jamba prefill T=1326, E=16 k=2", rand(1326, 16), 2, True),
+             ("training T=2048 (deepseek, B=8 x S=256)", rand(2048, 64), 6,
+              False),
+             ("jamba training T=512, E=16 k=2", rand(512, 16), 2, False),
              ("T=1", rand(1, 64), 6, False),
              ("T=200, a tail tile of 72 rows", rand(200, 64), 6, False),
              ("mixtral E=8 k=2, T=384", rand(384, 8), 2, False),
@@ -1368,6 +1411,8 @@ RWKV_CASES = [
      (1, 512, 32, 64, torch.bfloat16, True, False), False, None),
     ("B=4, T=700, from a state", (4, 700, 32, 64, torch.float32, True, False),
      False, None),
+    ("training B=8, T=256 (rwkv6-1.6b)",
+     (8, 256, 32, 64, torch.float32, False, False), False, None),
     ("w with exact zeros and 1 - 2^-24, T=300, from a state",
      (1, 300, 32, 64, torch.float32, True, True), False, None),
     ("T=46, from a state (a chunk short)",
@@ -1644,6 +1689,8 @@ FUSED_CASES = [
     (FUSED_SPLIT_CASE, (2, 300, 1000, 8, torch.float32, True), False),
     (FUSED_TAIL_CASE, (1, 64, 8190, 16, torch.bfloat16, True), False),
     ("B=2, T=200, from a state", (2, 200, 8192, 16, torch.bfloat16, True),
+     False),
+    ("training B=2, T=256 (jamba)", (2, 256, 8192, 16, torch.bfloat16, False),
      False)]
 
 
@@ -3526,7 +3573,11 @@ SERVED_PARAMS = {("qwen2-7b", 28): 7_615_616_512,
                  ("rwkv6-1.6b", 24): 1_584_091_136,
                  ("jamba-v0.1-52b", 16): 26_053_480_448,
                  ("llava-next-34b", 60): 34_388_917_248,
-                 ("seamless-m4t-medium", 12): 877_260_800}
+                 ("seamless-m4t-medium", 12): 877_260_800,
+                 ("qwen1.5-0.5b", 24): 463_987_712,
+                 ("deepseek-moe-16b", 2): 1_091_315_712,
+                 ("rwkv6-1.6b", 2): 378_077_184,
+                 ("jamba-v0.1-52b", 2): 3_742_289_920}
 
 
 def _init_model(name, num_layers=None):
@@ -3589,6 +3640,17 @@ def _requests(prompts, n_new=N_NEW):
             for i, p in enumerate(prompts)]
 
 
+def _wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels import (
+        flash_attention, mamba_scan, mamba_scan_fused, moe_router,
+        rwkv6_scan, vfl_matmul_clients)
+    return {"vfl_matmul": vfl_matmul_clients,
+            "flash_attention": flash_attention, "moe_router": moe_router,
+            "rwkv6_scan": rwkv6_scan, "mamba_scan": mamba_scan,
+            "mamba_scan_fused": mamba_scan_fused}
+
+
 def _counted_serve(cfg, model, params, prompts, per_layer, run=TEXT):
     """Serve the prompts with every launch count set to 0 just before
     and read just after; checks the tokens, that each kernel in
@@ -3597,13 +3659,7 @@ def _counted_serve(cfg, model, params, prompts, per_layer, run=TEXT):
     often, and that no other kernel launched.  Then a rerun, whose
     tokens must be bitwise equal.  Returns (launches, engine counts,
     tokens, timings, peak bytes)."""
-    from repro_torch.kernels import (
-        flash_attention, mamba_scan, mamba_scan_fused, moe_router,
-        rwkv6_scan, vfl_matmul_clients)
-    wrappers = {"vfl_matmul": vfl_matmul_clients,
-                "flash_attention": flash_attention, "moe_router": moe_router,
-                "rwkv6_scan": rwkv6_scan, "mamba_scan": mamba_scan,
-                "mamba_scan_fused": mamba_scan_fused}
+    wrappers = _wrappers()
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4205,6 +4261,404 @@ def phase_serve_audio(attn_row) -> None:
             "prefix_emb"]))})
 
 
+# ---------------------------------------------------------------------------
+# LM training: qwen1.5-0.5b at full width and depth through the reference
+# CLI's entry point and flags (repro/launch/train.py: batch 8, seq 256, lr
+# 3e-4 with 10 warmup steps), and one forward and backward of each other
+# family's kernels at full width
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+# the learning check: the CLI's --vocab knob at 512, its default 50 steps
+# at its default lr 3e-4; the final loss at least 0.5 below the first
+# (tests/test_system.py::test_lm_training_learns)
+LEARN_VOCAB, LEARN_STEPS, LEARN_DROP = 512, 50, 0.5
+TRAIN_TIMED_STEPS = 10
+# a gradient leaf through the kernels against the same leaf through the
+# plain hook, relative L2, held to the floor that rounding alone sets in
+# the same run: the same leaf through the plain function computed in
+# float64 (its outputs cast back), a second correct version.  The model
+# rounds every activation to bf16, and an output that lands on the other
+# side of a rounding, however small its change, moves the backward of
+# every layer below; a leaf whose gradient is a sum of many cancelling
+# terms (rwkv6's bonus) reads large in both.  A correct kernel reads
+# about its floor (0.95-1.1x in the first chip runs); a leaf's limit is
+# GRAD_FLOOR_FACTOR x its floor, and at least GRAD_RTOL_MIN (about 9x
+# one bf16 rounding of a gradient, 2^-9 / sqrt(3) in L2).  A detached
+# kernel output reads 1.0 on every leaf that feeds the kernel; a planted
+# fault fails where any leaf exceeds its limit
+GRAD_FLOOR_FACTOR = 3
+GRAD_RTOL_MIN = 0.01
+# (arch, layers, batch, seq, the hook the check swaps, kernel calls a
+# forward, planted faults): full width, depth cut to the layers that hold
+# the family's kernels
+GRAD_FAMILIES = (
+    ("deepseek-moe-16b", 2, 8, 256, "route", {"flash_attention": 2,
+                                              "moe_router": 1},
+     ("router_weights_detached",)),
+    ("rwkv6-1.6b", 2, 8, 256, "wkv", {"rwkv6_scan": 2},
+     ("scan_output_detached",)),
+    ("jamba-v0.1-52b", 2, 2, 256, "sscan", {"mamba_scan_fused": 2,
+                                            "moe_router": 1},
+     ("scan_output_detached",)),
+    ("seamless-m4t-medium", None, 2, 64, "attend", {"flash_attention": 36},
+     ("attention_detached",)))
+
+
+def _plain_hook(hook):
+    from repro_torch.kernels import (
+        flash_attention_ref, mamba_scan_fused_ref, moe_router_ref,
+        rwkv6_scan_ref)
+    return {"attend": flash_attention_ref, "route": moe_router_ref,
+            "wkv": rwkv6_scan_ref, "sscan": mamba_scan_fused_ref}[hook]
+
+
+def _float64_hook(hook):
+    """The plain version of ``hook`` computed in float64, its floating
+    outputs cast back to the dtypes the plain version gives (module
+    constants: the gradient check's floor)."""
+    plain = _plain_hook(hook)
+
+    def run(*args, **kw):
+        out = plain(*(a.double() if isinstance(a, torch.Tensor)
+                      and a.is_floating_point() else a for a in args), **kw)
+        if isinstance(out, tuple):
+            return tuple(o.float() if o.is_floating_point() else o
+                         for o in out)
+        return out.to(args[0].dtype)
+    return run
+
+
+def _detached(hook):
+    """A planted fault: the kernel on detached inputs, so its output has
+    no gradient (what every kernel gave before the Functions)."""
+    from repro_torch.kernels import (
+        flash_attention, mamba_scan_fused, moe_router, rwkv6_scan)
+    fn = {"attend": flash_attention, "route": moe_router,
+          "wkv": rwkv6_scan, "sscan": mamba_scan_fused}[hook]
+
+    def run(*args, **kw):
+        return fn(*(a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in args), **kw)
+    return run
+
+
+def _wrong_mask_backward(q, k, v, **kw):
+    """A planted fault: the kernel's forward, its backward recomputed
+    with the causal mask flipped."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+
+    class Flipped(ops.FlashAttentionFunction):
+        @staticmethod
+        def plain(q, k, v, **o):
+            return flash_attention_ref(q, k, v,
+                                       **{**o, "causal": not o["causal"]})
+    return Flipped.apply(q, k, v, kw["causal"], kw["window"], kw["softcap"],
+                         kw["scale"], kw["q_pos"], kw["k_pos"])
+
+
+def _lm_batch(cfg, B, S, seed, prefix=False) -> dict:
+    """A next-token batch of the Markov stream (numpy seed) on the card,
+    and random frames as ``prefix_emb`` where asked."""
+    from repro_torch.data import markov_lm_batches
+    b = next(markov_lm_batches(cfg.vocab_size, B, S, seed=seed))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+    if prefix:
+        batch["prefix_emb"] = _random_prefix(cfg, seed).expand(
+            B, -1, -1).contiguous()
+    return batch
+
+
+def _grads(cfg, params, batch, hooks):
+    """(loss, gradient leaves, launches) of one forward and backward of
+    ``Model.loss`` with ``hooks``, every count set to 0 just before."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    wrappers = _wrappers()
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    for fn in wrappers.values():
+        fn.launches = 0
+    loss, _ = build_model(cfg, **hooks).loss(live, batch)
+    leaves = tree_leaves(live)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, leaves)], \
+        {name: fn.launches for name, fn in wrappers.items()}
+
+
+def _leaf_paths(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def _grad_rel(got, plain) -> list:
+    """Per leaf ||got - plain|| / ||plain|| in float32."""
+    out = []
+    for a, b in zip(got, plain):
+        nb = float(b.float().norm())
+        d = float((a.float() - b.float()).norm())
+        out.append(d / nb if nb > 0 else (0.0 if d == 0 else math.inf))
+    return out
+
+
+def _grad_check(name, cfg, params, batch, hook, calls, faults) -> dict:
+    """One forward and backward through the kernels against the same
+    through the plain ``hook`` (the other kernels in both), leaf by leaf,
+    each leaf within its limit (module constants); each planted fault
+    (name -> hooks) must exceed some leaf's limit; the kernel run's
+    launches must be ``calls`` (a forward) x 2 with remat (the recompute
+    runs the forward again; the backwards launch nothing)."""
+    plain_loss, plain, _ = _grads(cfg, params, batch,
+                                  {hook: _plain_hook(hook)})
+    _, wide, _ = _grads(cfg, params, batch, {hook: _float64_hook(hook)})
+    floor = _grad_rel(wide, plain)
+    del wide
+    limit = [max(GRAD_RTOL_MIN, GRAD_FLOOR_FACTOR * f) for f in floor]
+    loss, got, launches = _grads(cfg, params, batch, {})
+    rel = _grad_rel(got, plain)
+    del got
+    fault_over = {}
+    for fault, hooks in faults.items():
+        _, g, _ = _grads(cfg, params, batch, hooks)
+        fault_over[fault] = max(r / lim for r, lim in
+                                zip(_grad_rel(g, plain), limit))
+        del g
+    del plain
+    per = 2 if cfg.remat else 1
+    want = {k: n * per for k, n in calls.items()}
+    paths = _leaf_paths(params)
+    over = [r / lim for r, lim in zip(rel, limit)]
+    worst = sorted(range(len(rel)), key=lambda i: -over[i])[:3]
+    reading = {"arch": cfg.name, "layers": cfg.num_layers,
+               "batch": list(batch["tokens"].shape), "hook": hook,
+               "remat": cfg.remat, "loss": loss, "plain_loss": plain_loss,
+               "grad_rel_l2_max": max(rel),
+               "grad_rel_l2_median": sorted(rel)[len(rel) // 2],
+               "floor_rel_l2_max": max(floor),
+               "floor_rel_l2_median": sorted(floor)[len(floor) // 2],
+               "max_over_limit": max(over), "leaves": len(rel),
+               "worst_leaves": [{"leaf": paths[i], "rel_l2": rel[i],
+                                 "floor": floor[i], "limit": limit[i]}
+                                for i in worst],
+               "launches": {k: v for k, v in launches.items() if v},
+               "expected_launches": want,
+               **{f"fault_{f}_over_limit": r for f, r in fault_over.items()}}
+    check(math.isfinite(loss) and abs(loss - plain_loss) <= 0.01 * abs(
+        plain_loss), f"{name}: loss {loss} against the plain {plain_loss}")
+    check(max(over) <= 1.0, f"{name} gradients, kernels vs plain {hook}: "
+          f"a leaf at {max(over)} x its limit: {reading['worst_leaves']}")
+    for fault, r in fault_over.items():
+        check(r > 1.0, f"planted fault '{fault}' passed the {name} "
+              f"gradient check: at most {r} x a leaf's limit")
+    for kname, n in launches.items():
+        check(n == want.get(kname, 0), f"{name}: {kname} launched {n} "
+              f"times in a forward and backward, expected "
+              f"{want.get(kname, 0)}")
+    return reading
+
+
+def _clone(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _same(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def _spread(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _stack_pods(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_pods([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _pod_readings(cfg, model, params, opt) -> dict:
+    """make_federated_train_step, 2 pods (weights from seeds 0 and 1),
+    FedAvg every 2 steps, 4 steps of the CLI's batch split in two: the
+    replicas bitwise equal after each FedAvg and apart before it; pod
+    0's first step bitwise make_train_step on its slice."""
+    from repro_torch.launch.train import (
+        make_federated_train_step, make_train_step)
+    from repro_torch.tree import tree_map
+    other = model.init(torch.Generator(DEVICE).manual_seed(1))
+    pf = _stack_pods([params, other])
+    del other
+    sf = opt.init(pf)
+    pod0 = _clone(tree_map(lambda t: t[0], pf))
+    state0 = opt.init(pod0)
+    fed = make_federated_train_step(model, opt, 2, 2)
+    plain = make_train_step(model, opt)
+    equal, step = [], 0
+    for i in range(4):
+        batch = _lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=20 + i)
+        split = {k: v.reshape((2, TRAIN_BATCH // 2) + v.shape[1:])
+                 for k, v in batch.items()}
+        pf, sf, step, m = fed(pf, sf, step, split)
+        equal.append(_same(tree_map(lambda t: t[0], pf),
+                           tree_map(lambda t: t[1], pf)))
+        if i == 0:
+            pod0, state0, _, _ = plain(pod0, state0, 0, {
+                k: v[0] for k, v in split.items()})
+            first = {"params": _same(tree_map(lambda t: t[0], pf), pod0),
+                     "state": _same(tree_map(lambda t: t[0], sf), state0),
+                     "spread": _spread(tree_map(lambda t: t[0], pf), pod0)}
+            del pod0, state0
+    loss = float(m["loss"])
+    del pf, sf
+    r = {"pods": 2, "fedavg_every": 2, "steps": 4,
+         "replicas_equal_after_step": equal,
+         "pod_step_vs_plain_step": first, "last_loss": loss}
+    check(equal == [False, True, False, True], f"pods: replicas equal "
+          f"after steps {equal}, expected after each FedAvg (1, 3) only")
+    check(first["params"] and first["state"], f"pods: pod 0's first step "
+          f"is not bitwise make_train_step on its slice: {first}")
+    check(math.isfinite(loss), f"pods: loss {loss}")
+    return r
+
+
+def _train_timings(cfg, model, params, opt) -> dict:
+    """Steps/s and tokens/s over the host clock (TRAIN_TIMED_STEPS steps
+    after 2 warm ones, ending in a synchronize), peak device memory, and
+    one step under torch.profiler; and a rerun of 2 steps from the same
+    weights, state and batches: bitwise, or its spread."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import make_train_step
+    fn = make_train_step(model, opt)
+    batches = [_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=s)
+               for s in range(2)]
+    start_p, start_s = _clone(params), opt.init(params)
+    runs = []
+    for _ in range(2):
+        p, s = _clone(start_p), _clone(start_s)
+        for i, b in enumerate(batches):
+            p, s, _, m = fn(p, s, i, b)
+        runs.append(({"params": p, "state": s}, float(m["loss"])))
+    rerun = {"bitwise": _same(runs[0][0], runs[1][0]),
+             "spread": _spread(runs[0][0], runs[1][0]),
+             "losses": [r[1] for r in runs]}
+    del runs
+    p, s = start_p, start_s
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = 0
+    for _ in range(2):
+        p, s, step, m = fn(p, s, step, batches[step % 2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        p, s, step, m = fn(p, s, step, batches[step % 2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, s, step, m = fn(p, s, step, batches[step % 2])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del p, s
+    check(rerun["bitwise"], f"{cfg.name} training rerun: not bitwise "
+          f"equal: {rerun}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"steps_per_s": TRAIN_TIMED_STEPS / wall,
+            "tokens_per_s": TRAIN_TIMED_STEPS * tokens / wall,
+            "step_ms": wall / TRAIN_TIMED_STEPS * 1e3,
+            "timed_steps": TRAIN_TIMED_STEPS, "peak_gb": peak / 1e9,
+            "rerun": rerun, "profile": _profile_rows(prof, wall_ms, 1)}
+
+
+def phase_train_lm(attn_row, router_row, rwkv_row, mamba_row) -> None:
+    """LM training on the card (module doc, phase 21)."""
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import adam, linear_warmup_cosine
+    t_phase = time.perf_counter()
+    held = _release()
+    cfg, model, params, info = _init_model(TRAIN_ARCH)
+    check(cfg.remat, f"{TRAIN_ARCH} trains with remat")
+    batch = _lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    grads = _grad_check(TRAIN_ARCH, cfg, params, batch, "attend",
+                        {"flash_attention": cfg.num_layers},
+                        {"attention_detached": {"attend": _detached(
+                            "attend")},
+                         "wrong_mask_backward": {
+                             "attend": _wrong_mask_backward}})
+    emit({"phase": "train_lm_grads", **grads})
+    opt = adam(linear_warmup_cosine(3e-4, 10, LEARN_STEPS), per_client=False)
+    timing = _train_timings(cfg, model, params, opt)
+    emit({"phase": "train_lm_timing", "arch": TRAIN_ARCH,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, **timing})
+    pods = _pod_readings(cfg, model, params, opt)
+    emit({"phase": "train_lm_pods", "arch": TRAIN_ARCH, **pods})
+    del params, model, batch
+    _release()
+
+    # the main path: the CLI as a user runs it, every count set to 0 just
+    # before and read just after
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = train_main(["--vocab", str(LEARN_VOCAB), "--steps",
+                         str(LEARN_STEPS)])
+    main_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    want = LEARN_STEPS * cfg.num_layers * 2
+    check(launches["flash_attention"] == want, f"train_lm: flash_attention "
+          f"launched {launches['flash_attention']} times in {LEARN_STEPS} "
+          f"steps, expected {want} = {LEARN_STEPS} x {cfg.num_layers} "
+          "layers x 2 (the remat recompute)")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"train_lm: other kernels launched {launches}")
+    check(all(math.isfinite(x) for x in losses), f"train_lm losses {losses}")
+    check(losses[-1] <= losses[0] - LEARN_DROP, f"train_lm did not learn: "
+          f"{losses[0]} -> {losses[-1]} (a drop of {LEARN_DROP} wanted)")
+    emit({"phase": "train_lm", **info, "vocab": LEARN_VOCAB,
+          "steps": LEARN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "lr": 3e-4, "warmup": 10, "main_s": main_s,
+          "losses": losses[::5] + [losses[-1]],
+          "loss_drop": losses[0] - losses[-1],
+          "flash_attention_launches": launches["flash_attention"],
+          "allocated_before_gb": held / 1e9})
+
+    # each other family's kernels, one forward and backward at full
+    # width; the kernel under test against its plain version
+    family = {}
+    for arch, layers, B, S, hook, calls, faults in GRAD_FAMILIES:
+        _release()
+        fcfg, _, fparams, finfo = _init_model(arch, layers)
+        fbatch = _lm_batch(fcfg, B, S, seed=1,
+                           prefix=fcfg.is_encoder_decoder)
+        family[arch] = _grad_check(
+            arch, fcfg, fparams, fbatch, hook, calls,
+            {f: {hook: _detached(hook)} for f in faults})
+        family[arch]["params"] = finfo["params"]
+        emit({"phase": "train_lm_family", **family[arch]})
+        del fparams, fbatch
+
+    def count(kernel):
+        return {a: r["launches"].get(kernel, 0) for a, r in family.items()
+                if r["launches"].get(kernel)}
+    attn_row["launches_train_lm"] = launches["flash_attention"]
+    attn_row["launches_train_lm_checks"] = {
+        TRAIN_ARCH: grads["launches"].get("flash_attention", 0),
+        **count("flash_attention")}
+    router_row["launches_train_lm_checks"] = count("moe_router")
+    rwkv_row["launches_train_lm_checks"] = count("rwkv6_scan")
+    mamba_row["launches_train_lm_checks"] = count("mamba_scan_fused")
+    emit({"phase": "train_lm_summary",
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -4229,6 +4683,7 @@ def main() -> None:
     phase_serve_hybrid(mamba_row, attn_row, router_row)
     phase_serve_audio(attn_row)
     phase_serve_vlm(attn_row)
+    phase_train_lm(attn_row, router_row, rwkv_row, mamba_row)
     emit({"kernels": [kernel_row, attn_row, router_row, rwkv_row,
                       mamba_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

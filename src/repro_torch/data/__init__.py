@@ -8,3 +8,4 @@ from repro_torch.data.vertical import (  # noqa: F401
 from repro_torch.data.registry import (  # noqa: F401
     DatasetEntry, dataset_names, get_dataset, register_dataset,
 )
+from repro_torch.data.lm import MarkovLM, markov_lm_batches  # noqa: F401

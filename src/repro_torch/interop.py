@@ -7,7 +7,9 @@ the LM's ``vfl_embedding`` / ``lm_head`` / ``final_norm`` /
 ``stack.scanned.sub_j...`` with a leading [n_groups] axis under
 ``scanned`` (an encoder-decoder's ``encoder.stack`` and
 ``encoder.final_norm`` the same way, its decode state's ``enc`` a plain
-leaf), so crossing over is a copy with no transposes.  Arrays
+leaf), so crossing over is a copy with no transposes.  An optimizer state
+(Adam's ``{"mu": tree, "nu": tree}``) and a tree stacked on a leading
+axis (the LM's pods) cross the same way, leaf by leaf.  Arrays
 cross as numpy (bfloat16 as ``ml_dtypes``' bfloat16, which is what
 ``np.asarray`` gives for a JAX bfloat16 array); nothing here imports
 JAX.

@@ -11,8 +11,10 @@
 #                       and its fused form that discretises in registers
 #                       (CUDA C++, sm_90a)
 # Each package: csrc/ (the CUDA source), ops.py (wrapper, launch count,
-# and vfl_matmul's autograd.Function), ref.py (the plain PyTorch
-# version).  build.py compiles the sources with nvcc at first use.
+# and its autograd.Function: vfl_matmul's backward in PyTorch ops; the LM
+# kernels' the plain version's gradient, grad.py), ref.py (the plain
+# PyTorch version).  build.py compiles the sources with nvcc at first
+# use.
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
     flash_attention,
 )

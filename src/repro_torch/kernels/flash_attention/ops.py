@@ -33,7 +33,17 @@ Each call counts one launch, whichever route (a split-K call runs two
 kernels).  The kernels read q, k and v through their strides (unit
 stride along hd), so a transposed view of the model's [B, S, H, hd]
 activations costs no copy; the output has q's memory layout.  Head dims
-64, 128 and 256.  Forward only: the serving path needs no gradient.
+64, 128 and 256.
+
+Gradient: where q, k or v requires grad, a CUDA call runs through
+``FlashAttentionFunction`` (a ``torch.autograd.Function``): its forward is the
+kernel, launched and counted as above; its backward recomputes the
+plain version (``FlashAttentionFunction.plain``, ``flash_attention_ref``)
+from the saved q, k and v and differentiates it with PyTorch ops,
+launching no kernel.  The JAX package's training autodiffs plain
+attention and has no backward kernel either.  A call without grad
+launches as before.  On the CPU autograd differentiates the plain
+version directly.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import functools
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.grad import needs_grad, plain_vjp
 
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -213,6 +224,29 @@ def _launch(q, k, v, causal, window, softcap, scale, q_pos, k_pos):
     return out
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient (module doc).
+    ``plain`` is the function the backward recomputes (a subclass may
+    put another, as a planted fault does)."""
+    plain = staticmethod(flash_attention_ref)
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_pos,
+                k_pos):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return _launch(q, k, v, causal, window, softcap, scale, q_pos,
+                       k_pos)
+
+    @classmethod
+    def backward(cls, ctx, g):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        return plain_vjp(cls.plain, (q, k, v), ctx.needs_input_grad[:3], g,
+                         q_pos=q_pos, k_pos=k_pos, **ctx.opts) + \
+            (None,) * 6
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
                     scale=None, q_pos=None, k_pos=None):
     """Attention of q over k, v (module doc); [B, H, Sq, hd]."""
@@ -223,6 +257,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
     if q.device.type == "cuda":
         if q.numel() == 0:
             return torch.empty_like(q)
+        if needs_grad(q, k, v):
+            return FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                softcap, scale, q_pos, k_pos)
         return _launch(q, k, v, causal, window, softcap, scale, q_pos, k_pos)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -50,14 +50,16 @@ def attention_mask(sq, skv, q_pos, k_pos, causal, window, device):
 def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
                         scale=None, q_pos=None, k_pos=None):
     """q: [B, H, Sq, hd]; k, v: [B, KV, Skv, hd]; H % KV == 0.
-    Returns [B, H, Sq, hd] in q's dtype."""
+    Returns [B, H, Sq, hd] in q's dtype, computed in float32 (float64
+    for float64 inputs: the CPU gradient checks)."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     group = H // KV
     scale = scale if scale is not None else hd ** -0.5
-    kr = k.float().repeat_interleave(group, dim=1)
-    vr = v.float().repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kr = k.to(acc).repeat_interleave(group, dim=1)
+    vr = v.to(acc).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kr) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     mask = attention_mask(Sq, Skv, q_pos, k_pos, causal, window, q.device)

@@ -26,6 +26,17 @@ On a CUDA tensor each launches its hand-written Hopper kernel
 a CPU tensor each runs its plain version in ``ref.py``.  There is no
 other path.  Each counts its own launches (``mamba_scan.launches``,
 ``mamba_scan_fused.launches``).
+
+Gradient: where an input of ``mamba_scan_fused`` requires grad, a CUDA
+call runs through ``MambaScanFusedFunction`` (a
+``torch.autograd.Function``): its forward is the fused kernel, launched
+and counted as above; its backward recomputes ``mamba_scan_fused_ref``
+from the saved inputs and differentiates it with PyTorch ops, launching
+no kernel.  The JAX package's training autodiffs its plain scan and has
+no backward kernel either.  Such a call refuses ``h_out``: a state
+written in place has no gradient.  ``mamba_scan``, the unfused kernel
+that no model path calls, stays forward only.  On the CPU autograd
+differentiates the plain versions directly.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.grad import needs_grad, plain_vjp
 from repro_torch.kernels.mamba_scan.ref import (
     mamba_scan_fused_ref, mamba_scan_ref)
 
@@ -210,11 +222,32 @@ def _launch_fused(dt, x, Bm, Cm, A, h0, h_out):
     return y, h
 
 
+class MambaScanFusedFunction(torch.autograd.Function):
+    """The fused kernel forward, the plain version's gradient (module
+    doc)."""
+
+    @staticmethod
+    def forward(ctx, dt, x, Bm, Cm, A, h0):
+        ctx.save_for_backward(dt, x, Bm, Cm, A, h0)
+        return _launch_fused(dt, x, Bm, Cm, A, h0, None)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        return plain_vjp(mamba_scan_fused_ref, ctx.saved_tensors,
+                         ctx.needs_input_grad, (g_y, g_h))
+
+
 def mamba_scan_fused(dt, x, Bm, Cm, A, h0=None, *, h_out=None):
     """The discretisation and the selective scan in one call (module
     doc): (y [B, T, D] float32, h [B, D, N] float32)."""
     _check_fused(dt, x, Bm, Cm, A, h0, h_out)
     if dt.device.type == "cuda":
+        if needs_grad(dt, x, Bm, Cm, A, h0):
+            if h_out is not None:
+                raise ValueError("mamba_scan_fused: h_out with inputs that "
+                                 "require grad; a state written in place "
+                                 "has no gradient")
+            return MambaScanFusedFunction.apply(dt, x, Bm, Cm, A, h0)
         return _launch_fused(dt, x, Bm, Cm, A, h0, h_out)
     if dt.device.type == "cpu":
         return mamba_scan_fused_ref(dt, x, Bm, Cm, A, h0, h_out=h_out)

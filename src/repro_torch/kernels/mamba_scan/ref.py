@@ -25,11 +25,13 @@ def mamba_scan_ref(a, bx, c, h0=None, *, h_out=None):
     """a, bx: [B, T, D, N]; c: [B, T, N]; h0: [B, D, N] float32 or None
     -> (y [B, T, D] in a's dtype, final h [B, D, N] float32).  With
     ``h_out`` the final h is written there (it may be ``h0``) and
-    returned."""
+    returned.  Float64 inputs compute in float64 (the CPU gradient
+    checks)."""
     B, T, D, N = a.shape
-    h = torch.zeros((B, D, N), dtype=torch.float32, device=a.device) \
-        if h0 is None else h0.float()
-    af, bxf, cf = a.float(), bx.float(), c.float()
+    acc = torch.promote_types(a.dtype, torch.float32)
+    h = torch.zeros((B, D, N), dtype=acc, device=a.device) \
+        if h0 is None else h0.to(acc)
+    af, bxf, cf = a.to(acc), bx.to(acc), c.to(acc)
     ys = []
     for t in range(T):
         h = af[:, t] * h + bxf[:, t]
@@ -53,5 +55,6 @@ def mamba_scan_fused_ref(dt, x, Bm, Cm, A, h0=None, *, h_out=None):
     final h is written there (it may be ``h0``)."""
     a = torch.exp(dt[..., None] * A)
     bx = (dt * x)[..., None] * Bm[..., None, :].to(dt.dtype)
-    return mamba_scan_ref(a.float(), bx.float(), Cm.float(), h0,
+    acc = torch.promote_types(dt.dtype, torch.float32)
+    return mamba_scan_ref(a.to(acc), bx.to(acc), Cm.to(acc), h0,
                           h_out=h_out)

@@ -22,6 +22,17 @@ block, one row a group at a time.  A tile whose warps times values a
 lane are at most ``ONE_BLOCK_WORK`` runs as one block (a decode step;
 jamba's E = 16 tiles), a larger one over ``MAX_CLUSTER`` blocks.
 ``block_rows(plan, block)`` gives the rows a block takes.
+
+Gradient: where the logits require grad, a CUDA call runs through
+``MoeRouterFunction`` (a ``torch.autograd.Function``): its forward is
+the kernel, launched and counted as above; its backward is the closed
+form of the weights' gradient, in PyTorch ops.  The renormalised top-k
+weights are a softmax over the picked logits, so with g the weights'
+gradient, dl_j = w_j (g_j - sum_i w_i g_i) at a picked j and 0
+elsewhere.  The indices and the stats are not differentiable (marked
+so).  The JAX package's training autodiffs the plain router and has no
+backward kernel either.  On the CPU autograd differentiates the plain
+version directly.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.moe_router.ref import moe_router_ref
 
 MAX_E = 256
@@ -156,11 +168,38 @@ def _launch(logits, k, bt, launch=None):
     return w, idx, stats
 
 
+def weights_grad(w, idx, g, E):
+    """The logits' gradient [T, E] from the weights' gradient ``g`` [T,
+    k], given the weights ``w`` and picks ``idx`` (module doc)."""
+    dl = w * (g - (w * g).sum(-1, keepdim=True))
+    return torch.zeros((w.shape[0], E), dtype=w.dtype,
+                       device=w.device).scatter_(1, idx.long(), dl)
+
+
+class MoeRouterFunction(torch.autograd.Function):
+    """The kernel forward, the closed-form backward (module doc)."""
+
+    @staticmethod
+    def forward(ctx, logits, k, bt):
+        w, idx, stats = _launch(logits, k, bt)
+        ctx.mark_non_differentiable(idx, stats)
+        ctx.save_for_backward(w, idx)
+        ctx.E = logits.shape[1]
+        return w, idx, stats
+
+    @staticmethod
+    def backward(ctx, g, _idx, _stats):
+        w, idx = ctx.saved_tensors
+        return weights_grad(w, idx, g, ctx.E), None, None
+
+
 def moe_router(logits, k, *, bt=128):
     """Softmax + top-k + renormalise + per-tile stats (module doc)."""
     _check(logits, k, bt)
     bt = min(bt, logits.shape[0])
     if logits.device.type == "cuda":
+        if needs_grad(logits):
+            return MoeRouterFunction.apply(logits, k, bt)
         return _launch(logits, k, bt)
     if logits.device.type == "cpu":
         return moe_router_ref(logits, k, bt=bt)

@@ -29,9 +29,11 @@ import torch
 
 def moe_router_ref(logits, k, bt=128):
     """logits: [T, E] -> (weights [T, k] float32, indices [T, k] int32,
-    stats [ceil(T / bt), E] float32)."""
+    stats [ceil(T / bt), E] float32; float64 for float64 logits, the
+    CPU gradient checks)."""
     T, E = logits.shape
-    p = torch.softmax(logits.float(), dim=-1)
+    p = torch.softmax(logits.to(torch.promote_types(logits.dtype,
+                                                    torch.float32)), dim=-1)
     vals, order = torch.sort(p, dim=-1, descending=True, stable=True)
     top_w, top_i = vals[:, :k], order[:, :k]
     total = top_w[:, 0]

@@ -26,6 +26,15 @@ shape alone, picks the kernels:
   algorithm of ``rwkv6_scan_chunked_ref``.  Prefills.
 
 Either route adds one to ``rwkv6_scan.launches`` per call.
+
+Gradient: where an input requires grad, a CUDA call runs through
+``Rwkv6ScanFunction`` (a ``torch.autograd.Function``): its forward is
+the kernels of ``route``, launched and counted as above; its backward
+recomputes ``rwkv6_scan_ref`` from the saved inputs and differentiates
+it with PyTorch ops, launching no kernel.  The JAX package's training
+autodiffs its plain scan and has no backward kernel either.  Such a
+call refuses ``state_out``: a state written in place has no gradient.
+On the CPU autograd differentiates the plain version directly.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.grad import needs_grad, plain_vjp
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 HEAD_DIMS = (64, 128)
@@ -148,11 +158,31 @@ def _launch(route_name, r, k, v, w, u, state, state_out):
     return o, s_out
 
 
+class Rwkv6ScanFunction(torch.autograd.Function):
+    """The kernels forward, the plain version's gradient (module doc)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _launch(route(*r.shape), r, k, v, w, u, state, None)
+
+    @staticmethod
+    def backward(ctx, g_o, g_state):
+        return plain_vjp(rwkv6_scan_ref, ctx.saved_tensors,
+                         ctx.needs_input_grad, (g_o, g_state))
+
+
 def rwkv6_scan(r, k, v, w, u, state=None, *, state_out=None):
     """The WKV recurrence over T with the state in and out (module
     doc): (o [B, T, H, hd], state [B, H, hd, hd] float32)."""
     _check(r, k, v, w, u, state, state_out)
     if r.device.type == "cuda":
+        if needs_grad(r, k, v, w, u, state):
+            if state_out is not None:
+                raise ValueError("rwkv6_scan: state_out with inputs that "
+                                 "require grad; a state written in place "
+                                 "has no gradient")
+            return Rwkv6ScanFunction.apply(r, k, v, w, u, state)
         return _launch(route(*r.shape), r, k, v, w, u, state, state_out)
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, u, state, state_out=state_out)

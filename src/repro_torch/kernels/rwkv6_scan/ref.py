@@ -48,12 +48,14 @@ def rwkv6_scan_ref(r, k, v, w, u, state=None, *, state_out=None):
     """r, k, v, w: [B, T, H, hd]; u: [H, hd]; state: [B, H, hd, hd]
     float32 or None -> (o [B, T, H, hd] in r's dtype, final state
     [B, H, hd, hd] float32).  With ``state_out`` the final state is
-    written there (it may be ``state``) and returned."""
+    written there (it may be ``state``) and returned.  Float64 inputs
+    compute in float64 (the CPU gradient checks)."""
     B, T, H, hd = r.shape
-    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device) \
-        if state is None else state.float()
-    uf = u.float()[..., :, None]
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    acc = torch.promote_types(r.dtype, torch.float32)
+    S = torch.zeros((B, H, hd, hd), dtype=acc, device=r.device) \
+        if state is None else state.to(acc)
+    uf = u.to(acc)[..., :, None]
+    rf, kf, vf, wf = (t.to(acc) for t in (r, k, v, w))
     outs = []
     for t in range(T):
         o, S = _step(S, rf[:, t], kf[:, t], vf[:, t], wf[:, t], uf)

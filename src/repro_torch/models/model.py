@@ -1,4 +1,4 @@
-"""Top-level Model: config -> init / forward / prefill / decode.  The
+"""Top-level Model: config -> init / loss / forward / prefill / decode.  The
 port of ``repro.models.model`` for every LM family: decoder-only (dense,
 MoE, ssm, hybrid), the vlm family's decoder over image rows before the
 text (``prefix_emb``), and the audio family's encoder-decoder (frames
@@ -10,9 +10,11 @@ itself.
 Parameters are a nested dict of tensors in the reference's tree
 (``vfl_embedding``, ``stack``, ``final_norm``, ``lm_head``, and
 ``encoder`` with its own ``stack`` and ``final_norm``), so weights cross
-over by key (``repro_torch.interop``).  Everything here is
-forward-only, under ``torch.no_grad()``: the LM's training path
-(``launch/train.py``) is not ported yet.
+over by key (``repro_torch.interop``).  ``forward_logits`` and ``loss``
+build autograd's graph where the parameters require grad (the training
+step, ``launch/train.py``, differentiates ``loss``); ``init``,
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``: serving
+keeps no graph.
 
 The kernel hooks, keyword arguments of ``Model`` and ``build_model``:
 ``attend`` is the attention function every attention layer calls, with
@@ -84,7 +86,6 @@ class Model:
     def _positions(n, device):
         return torch.arange(n, dtype=torch.int32, device=device)
 
-    @torch.no_grad()
     def _encode(self, params, prefix_emb):
         """Encoder pass (audio family): frame embeddings [B, F, D] ->
         memory [B, F, D] in the model's dtype."""
@@ -108,7 +109,6 @@ class Model:
         return T.embed_input(params, batch["tokens"], cfg,
                              prefix_emb=prefix), enc
 
-    @torch.no_grad()
     def forward_logits(self, params, batch):
         """batch: {'tokens': [B,S_text]} (+ 'prefix_emb': [B,P,D]).
         Returns (logits [B,S_text,V] float32 at the text positions,
@@ -123,6 +123,24 @@ class Model:
         h = L.apply_norm(params["final_norm"], h[:, S_total - S_text:, :],
                          cfg.norm_type)
         return T.logits_from_hidden(params, h, cfg), aux
+
+    def loss(self, params, batch):
+        """Next-token CE plus the MoE load-balance ``aux``: batch needs
+        'tokens' and 'labels' (same shape); labels < 0 are masked.
+        Returns (loss, {'ce', 'aux', 'tokens'}), 0-d float32 tensors.
+        The label logit is a gather where the reference contracts a
+        one-hot (which only spares it a gather of vocab-sharded logits);
+        the two are equal in float32."""
+        logits, aux = self.forward_logits(params, batch)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        lab = labels.clamp(min=0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, lab[..., None])[..., 0]
+        ll = label_logit - lse
+        tokens = mask.sum()
+        ce = -(ll * mask).sum() / tokens.clamp(min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": tokens}
 
     # ------------------------------------------------------------------
     # prefill (forward-only; returns logits and a populated decode state)

@@ -17,8 +17,10 @@ The De-VertiFL input block runs on one device here: ``embed_input`` is
 the plain lookup of the reference without a client mesh, with the vlm
 family's image rows (``prefix_emb``) before the text.  The multi-client
 ``exchange_features`` path (``shard_map`` over the embedding's
-client-sharded d_model) is not ported yet, nor is the LM's training
-path (ROADMAP.md, Queue 1 item 6).
+client-sharded d_model) is not ported yet (ROADMAP.md, Queue 1 item
+6).  The reference's ``_tied_logits`` custom VJP only keeps a
+vocab-sharded gradient sharded; autograd of ``h @ table.T`` computes
+the same gradient here.
 
 ``hooks`` (block and stack functions) holds the functions that stand
 in for the kernels, each under its keyword and None for the kernel:
@@ -28,12 +30,25 @@ in for the kernels, each under its keyword and None for the kernel:
 load-balance loss is summed over the stack by ``stack_apply``, as in
 the reference; prefill and decode drop it.
 
+Training differentiates ``stack_apply``.  Where autograd is recording,
+``cfg.remat`` recomputes activations in the backward, as the
+reference's ``jax.remat`` does (``torch.utils.checkpoint``,
+non-reentrant): the default policy checkpoints each prefix block and
+each periodic group (the reference's remat'ed scan body);
+``remat_policy="save_mixer_ffn"`` checkpoints each block's mixer and
+FFN halves apart, keeping their outputs.  Remat changes memory, not
+values.  A remat'ed layer runs its forward twice, so its kernels launch
+twice a training step.  The stacked group leaves are unbound once, so
+that the backward stacks each leaf's gradient once instead of adding
+a full-size zero-padded gradient per group.
+
 Decode writes every layer's cache in place: the attention ring, the
 RWKV state and token-shift rows, the Mamba state and conv history.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -157,10 +172,8 @@ def _cross(p, x, positions, cfg, kind, hooks, enc):
                             kv_override=enc, attend=hooks.get("attend"))
 
 
-def block_apply(p, x, positions, cfg, kind, hooks=None, enc=None):
-    """Full-sequence block. Returns (x, aux_loss); aux is 0 without MoE."""
-    _check_kind(kind)
-    hooks = hooks or {}
+def _mixer_half(p, x, positions, cfg, kind, hooks, enc):
+    """x plus the block's mixer (and cross attention)."""
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
     if kind["mixer"] == "attn":
         y = A.attn_apply(p["attn"], h, positions, cfg,
@@ -171,12 +184,37 @@ def block_apply(p, x, positions, cfg, kind, hooks=None, enc=None):
         y = S.mamba_apply(p, h, cfg, sscan=hooks.get("sscan"))
     elif kind["mixer"] == "rwkv":
         y = S.rwkv_time_mix(p, h, cfg, wkv=hooks.get("wkv"))
-    x = _cross(p, x + y, positions, cfg, kind, hooks, enc)
+    return _cross(p, x + y, positions, cfg, kind, hooks, enc)
+
+
+def _ffn_half(p, x, cfg, kind, hooks):
+    """(x plus the block's FFN, aux)."""
     h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
     y, aux = _ffn(p, h2, cfg, kind, hooks, with_aux=True)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def block_apply(p, x, positions, cfg, kind, hooks=None, enc=None,
+                run=_call):
+    """Full-sequence block. Returns (x, aux_loss); aux is 0 without MoE.
+    ``run(fn, *args)`` runs each half (``_recomputed``: the
+    "save_mixer_ffn" remat policy)."""
+    _check_kind(kind)
+    hooks = hooks or {}
+    x = run(_mixer_half, p, x, positions, cfg, kind, hooks, enc)
+    return run(_ffn_half, p, x, cfg, kind, hooks)
 
 
 def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
@@ -307,18 +345,32 @@ def stack_init(generator, cfg, kinds, dtype):
 
 
 def stack_apply(params, x, positions, cfg, kinds, hooks=None, enc=None):
+    """The stack over [B, S, D]: (x, the summed MoE aux), remat'ed as
+    ``cfg`` says where autograd records (module doc)."""
     layout = StackLayout(cfg, kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(layout.prefix):
-        x, a = block_apply(params[f"layer_{i}"], x, positions, cfg, kinds[i],
-                           hooks, enc)
-        aux = aux + a
-    for g in range(layout.n_groups):
-        gparams = _group(params["scanned"], g)
+    remat = cfg.remat and torch.is_grad_enabled()
+    halves = remat and cfg.remat_policy == "save_mixer_ffn"
+    if remat and cfg.remat_policy not in ("", "save_mixer_ffn"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    whole = _recomputed if remat and not halves else _call
+    run = _recomputed if halves else _call
+
+    def block(p, x, aux, kind):
+        x, a = block_apply(p, x, positions, cfg, kind, hooks, enc, run)
+        return x, aux + a
+
+    def group(gparams, x, aux):
         for j, kind in enumerate(layout.group_kinds):
-            x, a = block_apply(gparams[f"sub_{j}"], x, positions, cfg, kind,
-                               hooks, enc)
-            aux = aux + a
+            x, aux = block(gparams[f"sub_{j}"], x, aux, kind)
+        return x, aux
+
+    for i in range(layout.prefix):
+        x, aux = whole(block, params[f"layer_{i}"], x, aux, kinds[i])
+    if layout.n_groups:
+        groups = tree_map(lambda t: t.unbind(0), params["scanned"])
+        for g in range(layout.n_groups):
+            x, aux = whole(group, tree_map(lambda t: t[g], groups), x, aux)
     return x, aux
 
 

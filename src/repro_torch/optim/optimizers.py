@@ -3,11 +3,16 @@ port of ``repro.optim.optimizers``, written out op for op so that one
 step on the same parameters and gradients rounds as the reference does
 (``torch.optim.Adam`` fuses its arithmetic differently).
 
-Every leaf carries a leading client axis, and the update is
-elementwise over it, which is the reference's per-client ``vmap`` of
-``update`` -- except the global-norm clip, which the vmap makes
-per-client: ``clip_by_global_norm`` reduces over every axis but the
-first.  Moments are float32.  ``update`` writes the new values into the
+The update is elementwise, so it runs on any tree; the global-norm clip
+is not, and the caller chooses it with ``per_client``.  The
+federation's leaves carry a leading client axis, over which the
+reference ``vmap``s ``update``, making the clip per client:
+``per_client=True`` (the default) clips with ``clip_by_global_norm``,
+which reduces over every axis but the first.  The LM's training step
+(``launch/train.py``) clips the whole tree, as the reference's
+``adam(max_grad_norm=1.0)`` does: ``per_client=False``, with
+``clip_by_global_norm_tree``.  Nothing infers the choice from shapes.
+Moments are float32.  ``update`` writes the new values into the
 parameter tensors in place (they are the model's parameters on the hot
 path, so no second copy is allocated) and returns the same tree.
 """
@@ -25,6 +30,8 @@ class Optimizer(NamedTuple):
     init: Callable
     # (grads, state, params, step: int) -> (params, state, info)
     update: Callable
+    # whether the clip is per client (a leading axis) or over the tree
+    per_client: bool = True
 
 
 def _zeros_f32(params):
@@ -50,6 +57,19 @@ def clip_by_global_norm(grads, max_norm):
                                ).to(g.dtype), grads), gn
 
 
+def clip_by_global_norm_tree(grads, max_norm):
+    """Scale the whole tree's gradients so their global L2 norm is at
+    most ``max_norm``: the reference's ``clip_by_global_norm``.
+    Returns (clipped, norm []), the squares summed leaf by leaf in
+    leaf order."""
+    total = 0
+    for g in tree_leaves(grads):
+        total = total + torch.sum(torch.square(g.float()))
+    gn = torch.sqrt(total)
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
 def _f32(v):
     return float(np.float32(v))
 
@@ -61,9 +81,13 @@ def _assign(params, new):
 
 
 def adam(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
-         max_grad_norm: Optional[float] = 1.0):
-    """lr: float or schedule fn step->float."""
+         max_grad_norm: Optional[float] = 1.0, per_client: bool = True):
+    """lr: float or schedule fn step->float.  ``per_client``: the clip
+    per client over a leading axis (``info["grad_norm"]`` [n]), or over
+    the whole tree (a scalar; zero when nothing is clipped, as in the
+    reference)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
+    clip = clip_by_global_norm if per_client else clip_by_global_norm_tree
 
     def init(params):
         return {"mu": _zeros_f32(params), "nu": _zeros_f32(params)}
@@ -72,7 +96,9 @@ def adam(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
     def update(grads, state, params, step):
         gn = None
         if max_grad_norm:
-            grads, gn = clip_by_global_norm(grads, max_grad_norm)
+            grads, gn = clip(grads, max_grad_norm)
+        elif not per_client:
+            gn = torch.zeros((), device=tree_leaves(grads)[0].device)
         # bias corrections in float32 on the host, as the reference
         # computes them from its float32 step count
         t = np.float32(step + 1)
@@ -97,7 +123,7 @@ def adam(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
         return params, {"mu": _pick(flat, 1), "nu": _pick(flat, 2)}, \
             {"grad_norm": gn}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, per_client)
 
 
 def _pick(tree, i):

@@ -61,6 +61,9 @@ _REFERENCE_MODULES = {
     "session": "repro.api.session",
     "obs": "repro.obs",
     "federated": "repro.serving.federated",
+    "train": "repro.launch.train",
+    "lr_schedule": "repro.optim.schedule",
+    "lm_data": "repro.data.lm",
 }
 
 
