@@ -305,11 +305,46 @@ Phases, each printing one JSON line:
               random frames: non-causal flash_attention), each at full
               width, through the kernels against the plain version of
               the family's kernel, with its output detached as the
-              planted fault, and each kernel's launches
+              planted fault, and each kernel's launches; then
+              rwkv6-1.6b and seamless-m4t-medium again at the same
+              layers and batch in a float32 model, where rounding sets
+              a small floor: the detached output must exceed the limit
+              of rwkv6's bonus leaf and of the cross attention's q, k,
+              v projections on their own (their readings recorded)
+ 22. exchange the De-VertiFL input block's exchange: qwen1.5-0.5b at
+              full size with its embedding's d_model split among 16
+              emulated clients (64 columns each), under zeropad_psum and
+              allgather: at train_lm's batch the loss, the logits and
+              every gradient leaf bitwise one client's, flash_attention
+              launched 48 times in a forward and backward and no other
+              kernel, 2 steps rerun bitwise and bitwise one client's,
+              10 timed steps a mode beside one client's (steps/s, the
+              bytes each mode sends) and one under torch.profiler
+              (device ms, kernels a step); 6 greedy requests through
+              ServingEngine, tokens equal one client's; llava-next-34b
+              at full width and 4 layers (448 columns a client), a
+              prefill after 2,880 random image rows, logits and caches
+              bitwise one client's; three planted faults (a slice
+              padded at the next client's offset, the gather in
+              reversed client order, the image prefix not sliced) must
+              fail those checks
+ 23. dryrun   the one-card dry run: python -m repro_torch.launch.dryrun
+              over every ARCHS x SHAPES pair at 16 clients under
+              zeropad_psum, in a process of its own (the meta device:
+              no card, no memory), one line a record, every record ok
+              or skipped with the reference's reason; qwen1.5-0.5b
+              counted at train_lm's 8 x 256 (one client, and 16 in
+              each mode): the counted bound at or under the step's
+              device ms measured in train_lm and exchange, and the
+              achieved TFLOP/s and the bound over the host step time
+              beside it (not gated); then
+              dryrun_federated.run("qwen1.5-0.5b")
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
-and prints no result.  It imports nothing of JAX.
+and prints no result.  It imports nothing of JAX.  The peaks and each
+kernel's operations and bytes behind every bound it prints come from
+``repro_torch.roofline`` (``analysis``, ``work``), as the dry run's do.
 """
 from __future__ import annotations
 
@@ -326,13 +361,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth,
-# float32 outside the tensor cores (vfl_matmul's type) and dense bf16 in
-# the tensor cores (the serving path's type)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+# the published H100 SXM peaks (HBM3 bandwidth, float32 outside the
+# tensor cores, dense bf16 in them) and each kernel's operations and
+# bytes, from the port's roofline package (fails outside a checkout)
+from repro_torch.roofline import work as W  # noqa: E402
+from repro_torch.roofline.analysis import (  # noqa: E402
+    BF16_FLOP_PER_S, FP32_FLOP_PER_S, HBM_BYTES_PER_S)
 # exponentials (MUFU.EX2, one an expf) a clock on each SM: the CUDA C++
 # Programming Guide's throughput of base-2 exponentials at compute
 # capability 9.0; the rate is this times the SMs times the SM clock read
@@ -508,8 +544,6 @@ def phase_device() -> dict:
         print("chip_smoke: CUDA is not available; this script runs the "
               "port on a GPU", file=sys.stderr)
         sys.exit(1)
-    sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -685,9 +719,7 @@ def phase_kernel() -> dict:
             for key, fn in fns.items():
                 times[key + "ms"] = device_ms(fn)
                 times[key + "eager_ms"] = eager_ms(fn, iters)
-        k_sum = sum(mnist)
-        nbytes = 4 * (M * k_sum + k_sum * N + n * M * N) + 3 * 4 * n
-        flops = 2 * M * N * k_sum
+        nbytes, flops = W.vfl_matmul_work(M, sum(mnist), N, n)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
         p = ops.plan(M, kx, kx, N, n)
@@ -756,25 +788,6 @@ def _attn_case(gen, B, H, KV, Sq, Skv, hd, dtype, cache_layout=False):
                 rand(B, Skv, KV, hd).transpose(1, 2),
                 rand(B, Skv, KV, hd).transpose(1, 2))
     return rand(B, H, Sq, hd), rand(B, KV, Skv, hd), rand(B, KV, Skv, hd)
-
-
-def _attn_work(q, k, causal, window, q_pos, k_pos):
-    """(flops, bytes) this call's data needs: 4 * hd flops per visible
-    (query, key) pair; q, o and the positions once, and k, v once for
-    the slots that hold a key (position >= 0)."""
-    from repro_torch.kernels.flash_attention.ref import attention_mask
-    B, H, Sq, hd = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    mask = attention_mask(Sq, Skv, q_pos, k_pos, causal, window, q.device)
-    # a mask by key alone (non-causal, no window) is [.., 1, Skv]
-    mask = mask.expand(mask.shape[0], 1, Sq, Skv)
-    pairs = int(mask.sum()) * (B // mask.shape[0])
-    slots = B * Skv if k_pos is None else \
-        int((k_pos >= 0).sum()) * (B if k_pos.dim() == 1 else 1)
-    size = q.element_size()
-    nbytes = 2 * q.numel() * size + 2 * slots * KV * hd * size + sum(
-        4 * p.numel() for p in (q_pos, k_pos) if p is not None)
-    return 4 * H * hd * pairs, nbytes
 
 
 def attn_excess(out, ref) -> float:
@@ -983,8 +996,8 @@ def phase_attn_kernel() -> dict:
             for key, fn in fns.items():
                 times[key + "ms"] = device_ms(fn, calls=calls, replays=3)
                 times[key + "eager_ms"] = eager_ms(fn, calls)
-        flops, nbytes = _attn_work(q, k, causal, None, opts.get("q_pos"),
-                                   opts.get("k_pos"))
+        flops, nbytes = W.attention_work(q, k, causal, None,
+                                         opts.get("q_pos"), opts.get("k_pos"))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         timings[name] = {**times, "route": rows[-1]["route"],
@@ -1207,11 +1220,7 @@ def phase_moe_router() -> dict:
             times[key + "ms"] = device_ms(fn)
             times[key + "eager_ms"] = eager_ms(fn, 100)
         T, E = x.shape
-        n_tiles = -(-T // min(128, T))
-        nbytes = 4 * T * E + 8 * T * k + 4 * n_tiles * E
-        # per logit: max, subtract, exp, sum, divide; k compares; the
-        # stats' two adds
-        n_ops = T * E * (7 + k)
+        nbytes, n_ops = W.router_work(T, E, k)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / FP32_FLOP_PER_S * 1e3
         timings[name] = {"T": T, "E": E, "k": k, **times,
@@ -1463,13 +1472,7 @@ def phase_rwkv6_scan() -> dict:
                      **reading})
         if not timed:
             continue
-        size = r.element_size()
-        nbytes = 5 * r.numel() * size + u.numel() * 4 + \
-            (2 if with_state else 1) * B * H * hd * hd * 4
-        # what the function needs a (b, t, h) step: o_j = sum_i r_i S_ij
-        # + v_j sum_i r_i u_i k_i (2 hd^2 + 5 hd), S_ij <- w_i S_ij +
-        # k_i v_j (3 hd^2)
-        flops = (5 * hd * hd + 5 * hd) * B * T * H
+        nbytes, flops = W.rwkv6_scan_work(r, u, with_state)
         timings[name] = {"route": route, **_scan_timings(
             scan, lambda: rwkv6_scan_ref(r, k, v, w, u, s0),
             T == 1, nbytes, flops)}
@@ -1659,20 +1662,6 @@ def _discretise_then_scan(dt, x, Bm, Cm, A, h0=None):
     return mamba_scan(a, bx, Cm.float(), h0)
 
 
-def _fused_work(dt, x, Bm, A, h0):
-    """(bytes, float32 operations, exponentials) the fused function needs:
-    dt, x, B, C, A and the input state read once, y and the state written
-    once; a (b, t, d, n) step is dt A, (dt x) B, a h + bx (2), h C and
-    its sum (2), plus dt x once a (b, t, d); one exponential."""
-    B, T, D = dt.shape
-    N = A.shape[1]
-    size = x.element_size()
-    nbytes = (4 * B * T * D + size * B * T * D + 2 * size * B * T * N +
-              4 * D * N + (2 if h0 is not None else 1) * 4 * B * D * N +
-              4 * B * T * D)
-    return nbytes, 6 * B * T * D * N + B * T * D, B * T * D * N
-
-
 # name, (B, T, D, N, model dtype, from a state), timed (the serving
 # path's shape): jamba's prefill of the first and the longest prompt in
 # its bf16 (dt float32, x, B and C bf16), a decode step of 8 slots; then
@@ -1720,7 +1709,8 @@ def _phase_mamba_fused(gen) -> dict:
                      **reading})
         if not timed:
             continue
-        nbytes, flops, exps = _fused_work(*args[:3], args[4], args[5])
+        nbytes, flops, exps = W.mamba_scan_fused_work(*args[:3], args[4],
+                                                      args[5])
         with torch.no_grad():
             timings[name] = _scan_timings(
                 lambda: mamba_scan_fused(*args),
@@ -1813,13 +1803,11 @@ def phase_mamba_scan() -> dict:
                      **reading})
         if not timed:
             continue
-        size = a.element_size()
-        nbytes = (2 * a.numel() + c.numel() + B * T * D) * size + \
-            (2 if with_state else 1) * B * D * N * 4
+        nbytes, flops = W.mamba_scan_work(a, c, with_state)
         timings[name] = _scan_timings(
             lambda: mamba_scan(a, bx, c, h0),
             lambda: mamba_scan_ref(a, bx, c, h0),
-            T == 1, nbytes, 4 * B * T * D * N)
+            T == 1, nbytes, flops)
 
     a, bx, c, h0, (y, h), _ = kept[SPLIT_CASE]
     T1 = a.shape[1] * 41 // 100
@@ -2803,10 +2791,7 @@ def _stacked_launch(lb, xb, calls) -> dict:
                  "library_ms": device_ms(
                      lambda: torch.bmm(x_lanes, w_lanes), calls=calls)}
         vfl_matmul_clients.launches = launches
-    k_sum = sum(sizes)
-    nbytes = 4 * (m * k_sum + k_sum * n_out + len(sizes) * m * n_out) \
-        + 3 * 4 * len(sizes)
-    flops = 2 * m * n_out * k_sum
+    nbytes, flops = W.vfl_matmul_work(m, sum(sizes), n_out, len(sizes))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     p = ops.plan(m, x.shape[1], w.shape[1], n_out, len(sizes))
@@ -3577,19 +3562,23 @@ SERVED_PARAMS = {("qwen2-7b", 28): 7_615_616_512,
                  ("qwen1.5-0.5b", 24): 463_987_712,
                  ("deepseek-moe-16b", 2): 1_091_315_712,
                  ("rwkv6-1.6b", 2): 378_077_184,
-                 ("jamba-v0.1-52b", 2): 3_742_289_920}
+                 ("jamba-v0.1-52b", 2): 3_742_289_920,
+                 ("llava-next-34b", 4): 3_148_938_240}
 
 
-def _init_model(name, num_layers=None):
+def _init_model(name, num_layers=None, dtype=None):
     """The architecture at full width (and depth, unless ``num_layers``
-    cuts it), random weights drawn on the card from a seeded generator;
-    checks the parameter count."""
+    cuts it; in its config's dtype unless ``dtype`` names another),
+    random weights drawn on the card from a seeded generator; checks the
+    parameter count."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves
     cfg = get_config(name)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4289,19 +4278,31 @@ TRAIN_TIMED_STEPS = 10
 GRAD_FLOOR_FACTOR = 3
 GRAD_RTOL_MIN = 0.01
 # (arch, layers, batch, seq, the hook the check swaps, kernel calls a
-# forward, planted faults): full width, depth cut to the layers that hold
-# the family's kernels
+# forward, planted faults, the model's dtype (None: its config's), the
+# leaves each planted fault must exceed on their own): full width, depth
+# cut to the layers that hold the family's kernels.  In a bf16 model
+# rounding alone puts rwkv6's bonus leaf at a floor of 0.757 (a limit
+# of 2.27, above the detached output's 1.0) and seamless's leaves at
+# 0.0623; the float32 cases, at the same layers and batch, hold the
+# fault to the bonus leaf's own limit and to the cross attention's
+# input projections' (the leaves whose gradient runs through the
+# kernel's output)
 GRAD_FAMILIES = (
     ("deepseek-moe-16b", 2, 8, 256, "route", {"flash_attention": 2,
                                               "moe_router": 1},
-     ("router_weights_detached",)),
+     ("router_weights_detached",), None, ()),
     ("rwkv6-1.6b", 2, 8, 256, "wkv", {"rwkv6_scan": 2},
-     ("scan_output_detached",)),
+     ("scan_output_detached",), None, ()),
     ("jamba-v0.1-52b", 2, 2, 256, "sscan", {"mamba_scan_fused": 2,
                                             "moe_router": 1},
-     ("scan_output_detached",)),
+     ("scan_output_detached",), None, ()),
     ("seamless-m4t-medium", None, 2, 64, "attend", {"flash_attention": 36},
-     ("attention_detached",)))
+     ("attention_detached",), None, ()),
+    ("rwkv6-1.6b", 2, 8, 256, "wkv", {"rwkv6_scan": 2},
+     ("scan_output_detached",), "float32", ("rwkv/bonus",)),
+    ("seamless-m4t-medium", None, 2, 64, "attend", {"flash_attention": 36},
+     ("attention_detached",), "float32",
+     ("cross/wq/", "cross/wk/", "cross/wv/")))
 
 
 def _plain_hook(hook):
@@ -4368,16 +4369,17 @@ def _lm_batch(cfg, B, S, seed, prefix=False) -> dict:
     return batch
 
 
-def _grads(cfg, params, batch, hooks):
+def _grads(cfg, params, batch, hooks, clients=1):
     """(loss, gradient leaves, launches) of one forward and backward of
-    ``Model.loss`` with ``hooks``, every count set to 0 just before."""
+    ``Model.loss`` with ``hooks`` (and ``clients`` in the input block),
+    every count set to 0 just before."""
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves, tree_map
     wrappers = _wrappers()
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     for fn in wrappers.values():
         fn.launches = 0
-    loss, _ = build_model(cfg, **hooks).loss(live, batch)
+    loss, _ = build_model(cfg, clients=clients, **hooks).loss(live, batch)
     leaves = tree_leaves(live)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     torch.cuda.synchronize()
@@ -4403,13 +4405,16 @@ def _grad_rel(got, plain) -> list:
     return out
 
 
-def _grad_check(name, cfg, params, batch, hook, calls, faults) -> dict:
+def _grad_check(name, cfg, params, batch, hook, calls, faults,
+                watch=()) -> dict:
     """One forward and backward through the kernels against the same
     through the plain ``hook`` (the other kernels in both), leaf by leaf,
     each leaf within its limit (module constants); each planted fault
-    (name -> hooks) must exceed some leaf's limit; the kernel run's
-    launches must be ``calls`` (a forward) x 2 with remat (the recompute
-    runs the forward again; the backwards launch nothing)."""
+    (name -> hooks) must exceed some leaf's limit, and the limit of
+    every leaf whose path holds a string of ``watch`` (their readings
+    are recorded); the kernel run's launches must be ``calls`` (a
+    forward) x 2 with remat (the recompute runs the forward again; the
+    backwards launch nothing)."""
     plain_loss, plain, _ = _grads(cfg, params, batch,
                                   {hook: _plain_hook(hook)})
     _, wide, _ = _grads(cfg, params, batch, {hook: _float64_hook(hook)})
@@ -4419,16 +4424,21 @@ def _grad_check(name, cfg, params, batch, hook, calls, faults) -> dict:
     loss, got, launches = _grads(cfg, params, batch, {})
     rel = _grad_rel(got, plain)
     del got
-    fault_over = {}
+    paths = _leaf_paths(params)
+    for w in watch:
+        check(any(w in p for p in paths), f"{name}: no leaf of the tree "
+              f"holds {w!r}")
+    watched = [i for i, p in enumerate(paths) if any(w in p for w in watch)]
+    fault_over, fault_watched = {}, {}
     for fault, hooks in faults.items():
         _, g, _ = _grads(cfg, params, batch, hooks)
-        fault_over[fault] = max(r / lim for r, lim in
-                                zip(_grad_rel(g, plain), limit))
+        over_f = [r / lim for r, lim in zip(_grad_rel(g, plain), limit)]
+        fault_over[fault] = max(over_f)
+        fault_watched[fault] = [over_f[i] for i in watched]
         del g
     del plain
     per = 2 if cfg.remat else 1
     want = {k: n * per for k, n in calls.items()}
-    paths = _leaf_paths(params)
     over = [r / lim for r, lim in zip(rel, limit)]
     worst = sorted(range(len(rel)), key=lambda i: -over[i])[:3]
     reading = {"arch": cfg.name, "layers": cfg.num_layers,
@@ -4444,7 +4454,12 @@ def _grad_check(name, cfg, params, batch, hook, calls, faults) -> dict:
                                 for i in worst],
                "launches": {k: v for k, v in launches.items() if v},
                "expected_launches": want,
-               **{f"fault_{f}_over_limit": r for f, r in fault_over.items()}}
+               **{f"fault_{f}_over_limit": r for f, r in fault_over.items()},
+               "watched_leaves": [
+                   {"leaf": paths[i], "rel_l2": rel[i], "floor": floor[i],
+                    "limit": limit[i], **{f"fault_{f}_over_limit": r[j]
+                                          for f, r in fault_watched.items()}}
+                   for j, i in enumerate(watched)]}
     check(math.isfinite(loss) and abs(loss - plain_loss) <= 0.01 * abs(
         plain_loss), f"{name}: loss {loss} against the plain {plain_loss}")
     check(max(over) <= 1.0, f"{name} gradients, kernels vs plain {hook}: "
@@ -4452,6 +4467,10 @@ def _grad_check(name, cfg, params, batch, hook, calls, faults) -> dict:
     for fault, r in fault_over.items():
         check(r > 1.0, f"planted fault '{fault}' passed the {name} "
               f"gradient check: at most {r} x a leaf's limit")
+        for j, i in enumerate(watched):
+            check(fault_watched[fault][j] > 1.0, f"planted fault '{fault}' "
+                  f"passed the {name} gradient check on {paths[i]}: "
+                  f"{fault_watched[fault][j]} x its limit")
     for kname, n in launches.items():
         check(n == want.get(kname, 0), f"{name}: {kname} launched {n} "
               f"times in a forward and backward, expected "
@@ -4577,7 +4596,7 @@ def _train_timings(cfg, model, params, opt) -> dict:
             "rerun": rerun, "profile": _profile_rows(prof, wall_ms, 1)}
 
 
-def phase_train_lm(attn_row, router_row, rwkv_row, mamba_row) -> None:
+def phase_train_lm(attn_row, router_row, rwkv_row, mamba_row) -> dict:
     """LM training on the card (module doc, phase 21)."""
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim import adam, linear_warmup_cosine
@@ -4633,16 +4652,18 @@ def phase_train_lm(attn_row, router_row, rwkv_row, mamba_row) -> None:
     # each other family's kernels, one forward and backward at full
     # width; the kernel under test against its plain version
     family = {}
-    for arch, layers, B, S, hook, calls, faults in GRAD_FAMILIES:
+    for arch, layers, B, S, hook, calls, faults, dtype, watch in \
+            GRAD_FAMILIES:
         _release()
-        fcfg, _, fparams, finfo = _init_model(arch, layers)
+        fcfg, _, fparams, finfo = _init_model(arch, layers, dtype)
         fbatch = _lm_batch(fcfg, B, S, seed=1,
                            prefix=fcfg.is_encoder_decoder)
-        family[arch] = _grad_check(
-            arch, fcfg, fparams, fbatch, hook, calls,
-            {f: {hook: _detached(hook)} for f in faults})
-        family[arch]["params"] = finfo["params"]
-        emit({"phase": "train_lm_family", **family[arch]})
+        key = arch if dtype is None else f"{arch} {dtype}"
+        family[key] = _grad_check(
+            key, fcfg, fparams, fbatch, hook, calls,
+            {f: {hook: _detached(hook)} for f in faults}, watch)
+        family[key].update(params=finfo["params"], dtype=fcfg.dtype)
+        emit({"phase": "train_lm_family", **family[key]})
         del fparams, fbatch
 
     def count(kernel):
@@ -4656,6 +4677,385 @@ def phase_train_lm(attn_row, router_row, rwkv_row, mamba_row) -> None:
     rwkv_row["launches_train_lm_checks"] = count("rwkv6_scan")
     mamba_row["launches_train_lm_checks"] = count("mamba_scan_fused")
     emit({"phase": "train_lm_summary",
+          "phase_s": time.perf_counter() - t_phase})
+    return {"step_ms": timing["step_ms"],
+            "device_ms": timing["profile"]["device_ms_per_step"]}
+
+
+# ---------------------------------------------------------------------------
+# The De-VertiFL input block's exchange: qwen1.5-0.5b trained and served,
+# and llava-next-34b's image prefix prefilled, with the embedding's
+# d_model split among EXCHANGE_CLIENTS emulated clients (the production
+# mesh's model axis), under both exchange modes, against one client
+EXCHANGE_CLIENTS = 16
+EXCHANGE_MODES = ("zeropad_psum", "allgather")
+EXCHANGE_VLM_LAYERS = 4
+EXCHANGE_SERVE = Serving(max_batch=4, cache_len=512, n_new=16)
+
+
+def _exchange_cfg(cfg, mode):
+    return cfg.replace(vfl=dataclasses.replace(cfg.vfl, enabled=True,
+                                               exchange=mode))
+
+
+def _padded_at_next_offset(x_slices, mode):
+    """A planted fault: client i's slice padded at client i + 1's
+    offset (the last at client 0's)."""
+    n, d = len(x_slices), x_slices[0].shape[-1]
+    return sum(torch.nn.functional.pad(
+        x, (((i + 1) % n) * d, (n - 1 - (i + 1) % n) * d))
+        for i, x in enumerate(x_slices))
+
+
+def _gathered_reversed(x_slices, mode):
+    """A planted fault: the slices gathered in reversed client order."""
+    return torch.cat(x_slices[::-1], dim=-1)
+
+
+def _prefix_not_sliced(table, ids, prefix_emb, clients):
+    """A planted fault: every client puts the prefix's first column
+    slice before its text (the prefix not sliced by client)."""
+    d = table.shape[-1] // clients
+    return [torch.cat([prefix_emb[..., :d].to(table.dtype),
+                       table[:, i * d:(i + 1) * d][ids]], dim=1)
+            for i in range(clients)]
+
+
+class _Swapped:
+    """Within the block, ``repro_torch.models.transformer``'s function
+    ``name`` is ``fn`` (a planted fault)."""
+
+    def __init__(self, name, fn):
+        self.name, self.fn = name, fn
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self.saved = getattr(T, self.name)
+        setattr(T, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+        setattr(T, self.name, self.saved)
+
+
+@torch.no_grad()
+def _logits(model, params, batch):
+    logits, _ = model.forward_logits(params, batch)
+    torch.cuda.synchronize()
+    return logits
+
+
+def _fault_reading(bad, good) -> dict:
+    return {"bitwise": torch.equal(bad, good),
+            "rel_l2": float((bad - good).norm() / good.norm())}
+
+
+def _exchange_steps(cfg, model, params, opt, batches, profiled=True):
+    """2 steps from the same weights and state, twice: bitwise, and the
+    final weights; then TRAIN_TIMED_STEPS timed steps after 2 warm ones
+    (host clock, ending in a synchronize), and one under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import make_train_step
+    fn = make_train_step(model, opt)
+    runs = []
+    for _ in range(2):
+        p, s = _clone(params), opt.init(params)
+        for i, b in enumerate(batches):
+            p, s, _, m = fn(p, s, i, b)
+        runs.append(p)
+    rerun = _same(runs[0], runs[1])
+    p, s, step = runs.pop(), opt.init(params), 0
+    for _ in range(2):
+        p, s, step, m = fn(p, s, step, batches[step % 2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        p, s, step, m = fn(p, s, step, batches[step % 2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rerun_bitwise": rerun, "two_steps": runs[0],
+           "steps_per_s": TRAIN_TIMED_STEPS / wall,
+           "step_ms": wall / TRAIN_TIMED_STEPS * 1e3}
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p, s, step, m = fn(p, s, step, batches[step % 2])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _profile_rows(prof, wall_ms, 1)
+        out["profile"] = {k: rows[k] for k in (
+            "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "kernels_per_step", "by_kind")}
+    del p, s
+    return out
+
+
+def _exchange_train(cfg, model, params) -> dict:
+    """qwen1.5-0.5b at the CLI's batch: loss, logits and every gradient
+    leaf of each mode at EXCHANGE_CLIENTS clients against one client,
+    the launches of a forward and backward, 2 steps rerun and timed
+    steps; the two exchange faults on the logits."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import adam, linear_warmup_cosine
+    batch = _lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    base_loss, base_grads, _ = _grads(cfg, params, batch, {})
+    base_logits = _logits(model, params, batch)
+    paths = _leaf_paths(params)
+    opt = adam(linear_warmup_cosine(3e-4, 10, LEARN_STEPS), per_client=False)
+    batches = [_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=s)
+               for s in range(2)]
+    timed = {"clients=1": _exchange_steps(cfg, model, params, opt, batches)}
+    base_steps = timed["clients=1"].pop("two_steps")
+    modes = {}
+    for mode in EXCHANGE_MODES:
+        mcfg = _exchange_cfg(cfg, mode)
+        mmodel = build_model(mcfg, clients=EXCHANGE_CLIENTS)
+        loss, grads, launches = _grads(mcfg, params, batch, {},
+                                       EXCHANGE_CLIENTS)
+        unequal = [paths[i] for i, (a, b) in
+                   enumerate(zip(grads, base_grads)) if not torch.equal(a, b)]
+        rel = {paths[i]: _grad_rel([a], [b])[0] for i, (a, b) in
+               enumerate(zip(grads, base_grads)) if paths[i] in unequal}
+        del grads
+        logits_equal = torch.equal(_logits(mmodel, params, batch),
+                                   base_logits)
+        steps = _exchange_steps(mcfg, mmodel, params, opt, batches)
+        steps_equal = _same(steps.pop("two_steps"), base_steps)
+        modes[mode] = {"loss": loss, "loss_bitwise": loss == base_loss,
+                       "logits_bitwise": logits_equal,
+                       "grad_leaves_not_bitwise": rel,
+                       "launches": {k: v for k, v in launches.items() if v},
+                       "two_steps_bitwise_clients_1": steps_equal,
+                       "exchange_bytes": mmodel.exchange_bytes(
+                           (TRAIN_BATCH, TRAIN_SEQ)), **steps}
+    timed["clients=1 again"] = _exchange_steps(cfg, model, params, opt,
+                                               batches, profiled=False)
+    timed["clients=1 again"].pop("two_steps")
+    del base_grads, base_steps
+    zcfg = _exchange_cfg(cfg, "zeropad_psum")
+    zmodel = build_model(zcfg, clients=EXCHANGE_CLIENTS)
+    with _Swapped("exchange_features", _padded_at_next_offset):
+        shifted = _fault_reading(_logits(zmodel, params, batch), base_logits)
+    amodel = build_model(_exchange_cfg(cfg, "allgather"),
+                         clients=EXCHANGE_CLIENTS)
+    with _Swapped("exchange_features", _gathered_reversed):
+        reversed_ = _fault_reading(_logits(amodel, params, batch),
+                                   base_logits)
+    del base_logits
+    return {"modes": modes, "clients_1": timed, "faults": {
+        "slice padded at the next client's offset": shifted,
+        "allgather in reversed client order": reversed_}}
+
+
+def _exchange_serve(cfg, params) -> dict:
+    """A few greedy requests through ServingEngine at EXCHANGE_CLIENTS
+    clients in each mode: the tokens of one client."""
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 257, 6)]
+    reqs = lambda: _requests(prompts, EXCHANGE_SERVE.n_new)  # noqa: E731
+    run = EXCHANGE_SERVE
+    _, base, _ = _serve(build_model(cfg), params, reqs(), run.max_batch,
+                        run.cache_len)
+    out = {}
+    for mode in EXCHANGE_MODES:
+        model = build_model(_exchange_cfg(cfg, mode),
+                            clients=EXCHANGE_CLIENTS)
+        _, done, t = _serve(model, params, reqs(), run.max_batch,
+                            run.cache_len)
+        out[mode] = {"tokens_equal": done == base,
+                     "requests": len(done), "wall_s": t["wall_s"]}
+    return out
+
+
+def _exchange_vlm() -> dict:
+    """llava-next-34b at full width, EXCHANGE_VLM_LAYERS layers: one
+    prefill of a prompt after 2,880 random image rows in each mode at
+    EXCHANGE_CLIENTS clients, logits and the decode state against one
+    client's; the prefix not sliced must fail."""
+    from repro_torch.models import build_model
+    cfg, model, params, info = _init_model("llava-next-34b",
+                                           EXCHANGE_VLM_LAYERS)
+    rng = np.random.default_rng(4)
+    batch = _batch(rng.integers(0, cfg.vocab_size, 64).tolist(),
+                   _random_prefix(cfg, 1))
+    with torch.no_grad():
+        base, base_state = model.prefill(params, batch)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model,
+           "columns_a_client": cfg.d_model // EXCHANGE_CLIENTS,
+           "image_rows": batch["prefix_emb"].shape[1],
+           "text_tokens": batch["tokens"].shape[1], "params": info["params"]}
+    for mode in EXCHANGE_MODES:
+        mmodel = build_model(_exchange_cfg(cfg, mode),
+                             clients=EXCHANGE_CLIENTS)
+        with torch.no_grad():
+            logits, state = mmodel.prefill(params, batch)
+        out[mode] = {"logits_bitwise": torch.equal(logits, base),
+                     "state_bitwise": _same(state["cache"],
+                                            base_state["cache"]),
+                     "exchange_bytes": mmodel.exchange_bytes(
+                         tuple(batch["tokens"].shape),
+                         batch["prefix_emb"].shape[1])}
+    with _Swapped("client_inputs", _prefix_not_sliced), torch.no_grad():
+        bad, _ = build_model(_exchange_cfg(cfg, "zeropad_psum"),
+                             clients=EXCHANGE_CLIENTS).prefill(params, batch)
+    out["fault_prefix_not_sliced"] = _fault_reading(bad, base)
+    return out
+
+
+def phase_exchange(attn_row) -> dict:
+    """The input block's exchange on the card (module doc, phase 22);
+    returns each mode's step and device ms for the dry run's bound
+    check."""
+    t_phase = time.perf_counter()
+    held = _release()
+    cfg, model, params, info = _init_model(TRAIN_ARCH)
+    train = _exchange_train(cfg, model, params)
+    serve = _exchange_serve(cfg, params)
+    del params, model
+    _release()
+    vlm = _exchange_vlm()
+    _release()
+    emit({"phase": "exchange", **info, "clients": EXCHANGE_CLIENTS,
+          "columns_a_client": cfg.d_model // EXCHANGE_CLIENTS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "allocated_before_gb": held / 1e9, "train": train,
+          "serve": serve, "vlm": vlm,
+          "phase_s": time.perf_counter() - t_phase})
+    want = {"flash_attention": 2 * cfg.num_layers}
+    for mode, r in train["modes"].items():
+        check(r["loss_bitwise"] and r["logits_bitwise"], f"exchange "
+              f"{mode}: loss or logits differ from one client's: {r}")
+        check(not r["grad_leaves_not_bitwise"], f"exchange {mode}: "
+              f"gradient leaves differ from one client's: "
+              f"{r['grad_leaves_not_bitwise']}")
+        check(r["launches"] == want, f"exchange {mode}: launches "
+              f"{r['launches']} in a forward and backward, expected {want}")
+        check(r["rerun_bitwise"], f"exchange {mode}: 2 steps rerun not "
+              "bitwise")
+        check(r["two_steps_bitwise_clients_1"], f"exchange {mode}: 2 steps "
+              "differ from one client's")
+        check(serve[mode]["tokens_equal"], f"exchange {mode}: served tokens "
+              "differ from one client's")
+        check(vlm[mode]["logits_bitwise"] and vlm[mode]["state_bitwise"],
+              f"exchange {mode}: llava prefill differs from one client's")
+    for fault, r in {**train["faults"], "prefix not sliced":
+                     vlm["fault_prefix_not_sliced"]}.items():
+        check(not r["bitwise"], f"planted fault '{fault}' passed the "
+              f"exchange check: {r}")
+    attn_row["launches_exchange_step"] = {
+        mode: r["launches"].get("flash_attention", 0)
+        for mode, r in train["modes"].items()}
+    return {mode: {"step_ms": r["step_ms"],
+                   "device_ms": r["profile"]["device_ms_per_step"]}
+            for mode, r in train["modes"].items()}
+
+
+# ---------------------------------------------------------------------------
+# The one-card dry run: every ARCHS x SHAPES step built on the meta device
+# by `python -m repro_torch.launch.dryrun` in a process of its own
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 600
+
+
+def phase_dryrun(measured) -> None:
+    """The dry run's records (module doc, phase 23): the CLI over every
+    (arch, shape) at EXCHANGE_CLIENTS clients under zeropad_psum, its
+    records to DRYRUN_OUT.  ``measured``: the 8 x 256 step's host and
+    device ms with one client ("clients=1", from train_lm) and in each
+    exchange mode at EXCHANGE_CLIENTS clients."""
+    import os
+    import shutil
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, dryrun_federated
+    from repro_torch.roofline.analysis import HBM_BYTES
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--exchange", "zeropad_psum", "--clients", str(EXCHANGE_CLIENTS),
+         "--force", "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=DRYRUN_TIMEOUT_S)
+    check(cli.returncode == 0,
+          f"dry run exited {cli.returncode}: {cli.stdout[-2000:]}")
+    cli_s = time.perf_counter() - t_phase
+    counts = collections.Counter()
+    for arch in dryrun.ARCHS:
+        for shape in dryrun.SHAPES:
+            path = dryrun.result_path({"arch": arch, "shape": shape,
+                                       "mesh": dryrun.MESH,
+                                       "exchange": "zeropad_psum"},
+                                      DRYRUN_OUT)
+            r = json.loads(Path(path).read_text())
+            reason = dryrun.skip_reason(get_config(arch), shape)
+            counts[r["status"]] += 1
+            if reason:
+                check(r["status"] == "skipped" and r["reason"] == reason,
+                      f"dry run {arch} {shape}: {r['status']}, expected "
+                      f"skipped: {reason}")
+                emit({"phase": "dryrun_record", "arch": arch,
+                      "shape": shape, "status": "skipped"})
+                continue
+            check(r["status"] == "ok", f"dry run {arch} {shape}: {r}")
+            rl = r["roofline"]
+            emit({"phase": "dryrun_record", "arch": arch, "shape": shape,
+                  "status": "ok", "kind": r["kind"],
+                  "flops": r["per_chip_flops"], "bytes": r["per_chip_bytes"],
+                  "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+                  "bound_s": rl["bound_s"], "bottleneck": rl["bottleneck"],
+                  "useful_flop_frac": rl["useful_flop_frac"],
+                  "exchange_gb": r["collective_wire_bytes"]
+                  ["exchange_bytes"] / 1e9,
+                  "resident_gb": r["resident"]["total"] / 1e9,
+                  "fits_80GB": r["fits_80GB"],
+                  "kernel_calls": {k: v["calls"] for k, v in
+                                   r["kernels"].items()},
+                  "build_s": r["build_s"]})
+    # the shape the card trained at, counted in this process: the bound
+    # cannot exceed the step's device time measured in train_lm and
+    # exchange
+    card = InputShape("train_8x256", TRAIN_SEQ, TRAIN_BATCH, "train")
+    bounds = {}
+    for name, times in measured.items():
+        ms = times["step_ms"]
+        mode = None if name == "clients=1" else name
+        r = dryrun.run_one(TRAIN_ARCH, card, exchange=mode,
+                           clients=1 if mode is None else EXCHANGE_CLIENTS)
+        bound_ms = r["roofline"]["bound_s"] * 1e3
+        bounds[name] = {
+            "bound_ms": bound_ms, "measured_step_ms": ms,
+            "compute_ms": r["roofline"]["compute_s"] * 1e3,
+            "memory_ms": r["roofline"]["memory_s"] * 1e3,
+            "bottleneck": r["roofline"]["bottleneck"],
+            "flops": r["per_chip_flops"], "bytes": r["per_chip_bytes"],
+            "kernel_calls": {k: v["calls"] for k, v in r["kernels"].items()},
+            "achieved_tflop_per_s": r["per_chip_flops"] / ms / 1e9,
+            "bound_over_measured": bound_ms / ms,
+            "device_ms": times["device_ms"],
+            "bound_over_device": bound_ms / times["device_ms"],
+            "resident_gb": r["resident"]["total"] / 1e9}
+        check(bound_ms <= times["device_ms"], f"dry run {TRAIN_ARCH} at "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} ({name}): a counted bound of "
+              f"{bound_ms} ms above the step's measured device time of "
+              f"{times['device_ms']} ms: a wrong count")
+    fed = dryrun_federated.run(TRAIN_ARCH)
+    check(set(fed["standard"]) == {"collective_total_GB", "crosspod_GB"}
+          and set(fed["federated"]) == {
+              "collective_total_GB", "crosspod_sync_GB",
+              "crosspod_amortized_GB_per_step"}
+          and math.isclose(fed["dci_reduction"], fed["fedavg_every"]),
+          f"dryrun_federated {TRAIN_ARCH}: {fed}")
+    emit({"phase": "dryrun", "clients": EXCHANGE_CLIENTS,
+          "exchange": "zeropad_psum", "records": dict(counts),
+          "hbm_bytes": HBM_BYTES, "train_8x256": bounds,
+          "federated": fed, "cli_s": cli_s,
           "phase_s": time.perf_counter() - t_phase})
 
 
@@ -4683,7 +5083,10 @@ def main() -> None:
     phase_serve_hybrid(mamba_row, attn_row, router_row)
     phase_serve_audio(attn_row)
     phase_serve_vlm(attn_row)
-    phase_train_lm(attn_row, router_row, rwkv_row, mamba_row)
+    measured = {"clients=1": phase_train_lm(attn_row, router_row,
+                                            rwkv_row, mamba_row)}
+    measured.update(phase_exchange(attn_row))
+    phase_dryrun(measured)
     emit({"kernels": [kernel_row, attn_row, router_row, rwkv_row,
                       mamba_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -26,9 +26,19 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device: an init
+    given one builds the whole tree, shapes and dtypes only, without
+    drawing a number or allocating memory (``Model.init_meta``)."""
+    device = torch.device("meta")
+
+
 def _normal(generator, shape, scale, dtype):
     """``normal * scale`` drawn in float32 on the generator's device,
-    then cast: the reference's ``jax.random.normal(...) * scale``."""
+    then cast: the reference's ``jax.random.normal(...) * scale``.  A
+    ``MetaGenerator`` gives an empty meta tensor."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * scale
     return x.to(dtype)

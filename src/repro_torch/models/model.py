@@ -16,6 +16,12 @@ step, ``launch/train.py``, differentiates ``loss``); ``init``,
 ``prefill`` and ``decode_step`` run under ``torch.no_grad()``: serving
 keeps no graph.
 
+``clients`` (``Model`` and ``build_model``) is the number of clients
+the input block's exchange emulates, the size of the reference's mesh
+client axis (1: the plain lookup; ``transformer.embed_input``).  It goes
+to every ``embed_input`` call: ``forward_logits`` and ``loss``,
+``prefill`` and ``decode_step``.
+
 The kernel hooks, keyword arguments of ``Model`` and ``build_model``:
 ``attend`` is the attention function every attention layer calls, with
 ``flash_attention``'s signature (None: ``flash_attention``, the kernel
@@ -42,8 +48,9 @@ def padded_vocab(v: int) -> int:
 class Model:
     """Decoder-only or encoder-decoder LM assembled from a ModelConfig."""
 
-    def __init__(self, cfg, **hooks):
+    def __init__(self, cfg, clients=1, **hooks):
         self.cfg = cfg
+        self.clients = clients
         self.dtype = L.dtype_of(cfg.dtype)
         self.kinds = T.layer_kinds(cfg)
         self.enc_kinds = T.encoder_kinds(cfg) if cfg.is_encoder_decoder \
@@ -81,6 +88,28 @@ class Model:
             }
         return params
 
+    def init_meta(self):
+        """The parameter tree on the meta device: every leaf's shape and
+        dtype, no number drawn and no memory allocated (the dry run,
+        ``launch/dryrun.py``)."""
+        return self.init(L.MetaGenerator())
+
+    def exchange_bytes(self, batch_shape, prefix_rows=0):
+        """Bytes the input block's exchange sends for a batch of
+        ``batch_shape`` = (B, S) token ids (``prefix_rows`` image rows
+        before them), counted from shapes and the table's dtype; no
+        transfer takes place on one card.  'zeropad_psum': each of the
+        n clients sends a full-width [B, P + S, D] tensor; 'allgather':
+        each sends its [B, P + S, D/n] slice, one full width in all.
+        0 with one client or the input block off."""
+        cfg = self.cfg
+        if self.clients == 1 or not cfg.vfl.enabled:
+            return 0
+        B, S = batch_shape
+        full = B * (prefix_rows + S) * cfg.d_model * self.dtype.itemsize
+        return full * (self.clients if cfg.vfl.exchange == "zeropad_psum"
+                       else 1)
+
     # ------------------------------------------------------------------
     @staticmethod
     def _positions(n, device):
@@ -107,7 +136,7 @@ class Model:
         elif cfg.modality != "text" and "prefix_emb" in batch:
             prefix = batch["prefix_emb"]
         return T.embed_input(params, batch["tokens"], cfg,
-                             prefix_emb=prefix), enc
+                             prefix_emb=prefix, clients=self.clients), enc
 
     def forward_logits(self, params, batch):
         """batch: {'tokens': [B,S_text]} (+ 'prefix_emb': [B,P,D]).
@@ -198,7 +227,7 @@ class Model:
         """tokens: [B,1] -> (logits [B,1,V], new_state).  The caches in
         ``state`` are written in place; the new state shares them."""
         cfg = self.cfg
-        h = T.embed_input(params, tokens, cfg)
+        h = T.embed_input(params, tokens, cfg, clients=self.clients)
         pos = state["position"]
         h, new_cache = T.stack_decode(params["stack"], h, pos, cfg,
                                       self.kinds, state["cache"],
@@ -211,9 +240,9 @@ class Model:
         return logits, new_state
 
 
-def build_model(cfg, **hooks):
+def build_model(cfg, clients=1, **hooks):
     if getattr(cfg, "family", "mlp") == "mlp":
         raise ValueError(
             f"{cfg.name} is a paper MLP: repro_torch runs it through "
             "repro_torch.models.PaperMLP (stacked clients), not Model")
-    return Model(cfg, **hooks)
+    return Model(cfg, clients=clients, **hooks)

@@ -13,14 +13,17 @@ leading [n_groups] axis on every leaf, so weights cross between the
 packages with no reshapes.  Where the reference ``lax.scan``s over the
 groups, the port runs a Python loop over that axis.
 
-The De-VertiFL input block runs on one device here: ``embed_input`` is
-the plain lookup of the reference without a client mesh, with the vlm
-family's image rows (``prefix_emb``) before the text.  The multi-client
-``exchange_features`` path (``shard_map`` over the embedding's
-client-sharded d_model) is not ported yet (ROADMAP.md, Queue 1 item
-6).  The reference's ``_tied_logits`` custom VJP only keeps a
-vocab-sharded gradient sharded; autograd of ``h @ table.T`` computes
-the same gradient here.
+The De-VertiFL input block (``embed_input``): with one client it is the
+plain lookup, the vlm family's image rows (``prefix_emb``) before the
+text.  With n clients (the size of the reference's mesh client axis,
+which one card does not have) it emulates the reference's ``shard_map``
+on one device: client i looks up its column slice of the embedding
+table, puts its column slice of ``prefix_emb`` before it, and the
+clients' slices meet in ``exchange_features`` (paper Algorithm 2's
+zero-padded sum, or a gather).  Every sum there adds exact zeros, so
+both modes give the one-client features bit for bit.  The reference's
+``_tied_logits`` custom VJP only keeps a vocab-sharded gradient
+sharded; autograd of ``h @ table.T`` computes the same gradient here.
 
 ``hooks`` (block and stack functions) holds the functions that stand
 in for the kernels, each under its keyword and None for the kernel:
@@ -48,6 +51,7 @@ RWKV state and token-shift rows, the Mamba state and conv history.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
@@ -436,18 +440,77 @@ def stack_decode(params, x, position, cfg, kinds, cache, hooks=None,
 # ---------------------------------------------------------------------------
 # De-VertiFL input block and output head
 # ---------------------------------------------------------------------------
-def embed_input(params, ids, cfg, prefix_emb=None):
-    """Token embedding on one device: the reference's ``embed_input``
-    without a client mesh (``transformer.py:406-410``).  ``prefix_emb``
-    [B, P, D] (the vlm family's image rows), cast to the table's dtype,
-    goes before the text.  Returns [B, P + S, D], scaled by sqrt(d_model)
-    where the config has a final softcap (gemma2), in the table's
-    dtype."""
+EXCHANGE_MODES = ("zeropad_psum", "allgather")
+
+
+def exchange_features(x_slices, mode):
+    """HiddenOutputExchange over client-sharded features: the reference's
+    ``exchange_features`` with the mesh's client axis laid out as a
+    list.  ``x_slices`` holds the n clients' [..., D/n] slices in client
+    order; returns the full-width [..., D].
+
+    'zeropad_psum' (paper Algorithm 2): each client zero-pads its slice
+    to full width at offset i * D/n (the [n, ..., D] stack of what the
+    clients transmit is materialised), and the padded tensors are summed
+    (each element has one nonzero summand, so the order is moot).
+    'allgather': the slices are concatenated.  Any other mode raises
+    (the reference gathers under any name but 'zeropad_psum')."""
+    if mode == "zeropad_psum":
+        n, d = len(x_slices), x_slices[0].shape[-1]
+        padded = torch.stack([F.pad(x, (i * d, (n - 1 - i) * d))
+                              for i, x in enumerate(x_slices)])
+        return padded.sum(0)
+    if mode == "allgather":
+        return torch.cat(x_slices, dim=-1)
+    raise ValueError(f"unknown exchange mode {mode!r}; options: "
+                     f"{', '.join(EXCHANGE_MODES)}")
+
+
+def client_inputs(table, ids, prefix_emb, clients):
+    """Each client's [B, P + S, D/n] input to the exchange: its column
+    slice of ``table`` looked up at ``ids``, after its column slice of
+    ``prefix_emb`` (cast to the table's dtype) where there is one.  The
+    table is split once, so that the backward concatenates the clients'
+    [V, D/n] gradients once instead of adding a zero-padded [V, D]
+    gradient per client."""
+    d = table.shape[-1] // clients
+    tables = table.split(d, dim=-1)
+    prefixes = [None] * clients if prefix_emb is None else \
+        prefix_emb.split(d, dim=-1)
+    out = []
+    for t, p in zip(tables, prefixes):
+        emb = L.embed({"table": t}, ids)
+        if p is not None:
+            emb = torch.cat([p.to(emb.dtype), emb], dim=1)
+        out.append(emb)
+    return out
+
+
+def embed_input(params, ids, cfg, prefix_emb=None, clients=1):
+    """Token embedding with the De-VertiFL vertical input block: the
+    reference's ``embed_input`` (``transformer.py:399-448``).
+    ``prefix_emb`` [B, P, D] (the vlm family's image rows), cast to the
+    table's dtype, goes before the text.  ``clients`` stands for the
+    size of the reference's mesh client axis: with 1, or with the input
+    block off (``cfg.vfl.enabled`` false), the plain lookup; otherwise
+    each client's column slice (``client_inputs``) goes through
+    ``exchange_features`` under ``cfg.vfl.exchange``, and d_model must
+    divide among the clients, as the reference's ``shard_map``
+    requires.  Returns [B, P + S, D], scaled by sqrt(d_model) where the
+    config has a final softcap (gemma2), in the table's dtype."""
     emb_scale = cfg.d_model ** 0.5 if cfg.final_logit_softcap else 1.0
     key = "vfl_embedding" if cfg.vfl.enabled else "embedding"
-    h = L.embed(params[key], ids)
-    if prefix_emb is not None:
-        h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
+    if clients == 1 or not cfg.vfl.enabled:
+        h = L.embed(params[key], ids)
+        if prefix_emb is not None:
+            h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
+    else:
+        if cfg.d_model % clients:
+            raise ValueError(f"d_model {cfg.d_model} does not divide "
+                             f"among {clients} clients")
+        h = exchange_features(client_inputs(params[key]["table"], ids,
+                                            prefix_emb, clients),
+                              cfg.vfl.exchange)
     return h * torch.tensor(emb_scale, dtype=h.dtype, device=h.device)
 
 

@@ -32,7 +32,6 @@ from repro_torch.kernels import (
     rwkv6_scan_ref)
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import build_model
-from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServingEngine
@@ -105,13 +104,9 @@ def test_config_matches_reference(ref, name):
 
 
 def _meta_init(model):
-    """The model's tree with every random matrix on the meta device (no
-    memory): shapes and dtypes only."""
-    def normal(generator, shape, scale, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(L, "_normal", normal)
-        return model.init(torch.Generator())
+    """The model's tree on the meta device (no memory): shapes and
+    dtypes only."""
+    return model.init_meta()
 
 
 @pytest.mark.parametrize("name,layers,count", [

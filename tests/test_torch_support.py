@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import importlib.util
+import os
 import sys
 import types
 from pathlib import Path
@@ -64,6 +65,13 @@ _REFERENCE_MODULES = {
     "train": "repro.launch.train",
     "lr_schedule": "repro.optim.schedule",
     "lm_data": "repro.data.lm",
+    # the two dry runs set XLA_FLAGS when imported: reference() imports
+    # them after the backend is up and restores the variable
+    "specs": "repro.launch.specs",
+    "dryrun": "repro.launch.dryrun",
+    "dryrun_federated": "repro.launch.dryrun_federated",
+    "roofline_analysis": "repro.roofline.analysis",
+    "hlo_costs": "repro.roofline.hlo_costs",
 }
 
 
@@ -89,9 +97,17 @@ def reference():
         mp.setattr(jax.core, "Primitive", jax.extend.core.Primitive,
                    raising=False)
         torch.set_num_threads(1)
+        # repro.launch.dryrun sets XLA_FLAGS to 512 host devices when
+        # imported (dryrun.py:8); with the backend already up that
+        # changes no device count here, and the variable is restored
+        # before any test runs
+        jax.devices()
         try:
-            ns = {k: importlib.import_module(v)
-                  for k, v in _REFERENCE_MODULES.items()}
+            with pytest.MonkeyPatch.context() as env:
+                # records the variable (or its absence) for the undo
+                env.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+                ns = {k: importlib.import_module(v)
+                      for k, v in _REFERENCE_MODULES.items()}
             yield types.SimpleNamespace(jax=jax, jnp=jax.numpy, **ns)
         finally:
             torch.set_num_threads(threads)
