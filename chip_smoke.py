@@ -196,7 +196,34 @@ Phases, each printing one JSON line:
               fault x transform grid the same way; steps/s of each
               variant beside sync's, lane-steps/s
  14. profile  where a training step's time goes (torch.profiler)
- 15. serve    serves qwen2-7b at full width and depth (28 layers,
+ 15. audit    the static auditor (repro_torch.analysis) on the card: the
+              default audit grid on the kernel lane (mnist, 3 clients:
+              every federated mode x the shipped schedules, the composite
+              fault plan and the hot wire transforms), each combo traced
+              once (make_fx, then functionalized) with vfl_matmul_clients
+              one node (its custom-op route) and proved clean by the
+              taint, deadness and retrace passes (audit_combos), with
+              seconds a combo, channels and static_round_traces; the
+              sweep's lane check on the kernel lane; a traced round
+              bitwise an untraced one from the same state, both the
+              traced run and the audited graph run anew (kernel and
+              slice lanes); five planted faults each flagged with its
+              code (a leaky first layer: cross-client-flow with a chain
+              naming this file; the
+              custom-op route off: opaque-write; a FedAvg term without
+              its mask on 2 of 3 slots: unproven-dead-slot; a carried
+              leaf cast to float64: carry-aval-drift; a lane first layer
+              branching on its lane's client count:
+              lane-retrace-divergence); vfl_matmul launched in the audit
+              (the count set to 0 just before, read just after) as many
+              times as the grid implies (AUDIT_LAUNCHES_A_TRACE), kept
+              apart from the main path's count; then the profile
+              phase's round again just before and just after the audit,
+              outside it: the same kernels, by name and count, and
+              vfl_matmul launches; and a 14,000-sample round through the
+              raw launch against the custom op, alternating: steps/s of
+              each, losses bitwise
+ 16. serve    serves qwen2-7b at full width and depth (28 layers,
               random bf16 weights drawn on the card) through
               ServingEngine: 12 greedy requests of 128-1536 prompt
               tokens and 32 new tokens on 8 slots, with the
@@ -206,7 +233,7 @@ Phases, each printing one JSON line:
               model built with ``attend=flash_attention_ref``) while a
               planted fault's do not; then one decode step and one
               prefill under torch.profiler
- 16. serve_moe
+ 17. serve_moe
               after qwen2-7b's memory is released, serves
               deepseek-moe-16b at full width and depth (28 layers, 64
               routed experts top-6 + 2 shared, random bf16 weights drawn
@@ -221,7 +248,7 @@ Phases, each printing one JSON line:
               that check; the logits against a prefill routed by the
               plain version; then one decode step and one prefill
               under torch.profiler
- 17. serve_rwkv
+ 18. serve_rwkv
               after deepseek-moe-16b's memory is released, serves
               rwkv6-1.6b at full width and depth (24 layers, random bf16
               weights drawn on the card) with the same 12 requests'
@@ -236,7 +263,7 @@ Phases, each printing one JSON line:
               prefill(prompt[:n + 1]), on the logits and every layer's
               state, which a decode from a zeroed state must fail; then
               one decode step and one prefill under torch.profiler
- 18. serve_hybrid
+ 19. serve_hybrid
               after rwkv6-1.6b's memory is released, serves
               jamba-v0.1-52b at full width and cut depth (16 of its 32
               layers: 103.15 GB of bf16 weights do not fit the card's
@@ -250,7 +277,7 @@ Phases, each printing one JSON line:
               prefill (planted faults: y read from h_{t-1}, dt one step
               late, the last channel tile short one channel); logits
               against the plain scan; the state carry; profiles
- 19. serve_audio
+ 20. serve_audio
               after jamba's memory is released, serves
               seamless-m4t-medium at full size (12 encoder and 12
               decoder layers, d_model 1024, 16 heads of 64, bf16) on 8
@@ -266,7 +293,7 @@ Phases, each printing one JSON line:
               fail, and the logits against the plain attention's, which
               the cross attention skipped must fail; then one decode
               step and one prefill under torch.profiler
- 20. serve_vlm
+ 21. serve_vlm
               serves llava-next-34b at full width and depth (60 layers,
               d_model 7168, 56/8 heads of 128, bf16) on 8 slots of
               3,456: 12 greedy requests of 32-512 tokens after the
@@ -278,7 +305,7 @@ Phases, each printing one JSON line:
               last row must fail), the logits against the plain
               attention's (that cut and the first image row changed
               must fail); profiles
- 21. train_lm
+ 22. train_lm
               LM training, qwen1.5-0.5b at full width and depth (24
               layers, d_model 1024, 16 heads of 64, vocab 151,936, bf16,
               remat): one forward and backward of Model.loss at the
@@ -311,7 +338,7 @@ Phases, each printing one JSON line:
               a small floor: the detached output must exceed the limit
               of rwkv6's bonus leaf and of the cross attention's q, k,
               v projections on their own (their readings recorded)
- 22. exchange the De-VertiFL input block's exchange: qwen1.5-0.5b at
+ 23. exchange the De-VertiFL input block's exchange: qwen1.5-0.5b at
               full size with its embedding's d_model split among 16
               emulated clients (64 columns each), under zeropad_psum and
               allgather: at train_lm's batch the loss, the logits and
@@ -328,7 +355,7 @@ Phases, each printing one JSON line:
               padded at the next client's offset, the gather in
               reversed client order, the image prefix not sliced) must
               fail those checks
- 23. dryrun   the one-card dry run: python -m repro_torch.launch.dryrun
+ 24. dryrun   the one-card dry run: python -m repro_torch.launch.dryrun
               over every ARCHS x SHAPES pair at 16 clients under
               zeropad_psum, in a process of its own (the meta device:
               no card, no memory), one line a record, every record ok
@@ -339,6 +366,10 @@ Phases, each printing one JSON line:
               achieved TFLOP/s and the bound over the host step time
               beside it (not gated); then
               dryrun_federated.run("qwen1.5-0.5b")
+ 25. datasets the synthetic draws the phases made and reused: every
+              registered dataset's make goes through a cache keyed by
+              its arguments (the phases build their federations from
+              the same draws; each caller gets its own copy)
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 ...}`` line.  Any failed check raises, so the script exits non-zero
@@ -476,6 +507,40 @@ def emit(obj) -> None:
 def check(cond, msg) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# the synthetic draws made (and the host seconds they took) and reused
+_DRAWS = {"drawn": 0, "draw_s": 0.0, "reused": 0}
+
+
+def _cached_make(make):
+    """``make`` (a DatasetEntry's) with each (n, seed, test_frac) drawn
+    once; every call gets its own copy of the arrays."""
+    memo = {}
+
+    def cached(n=None, seed=None, test_frac=0.2):
+        key = (n, seed, test_frac)
+        if key in memo:
+            _DRAWS["reused"] += 1
+        else:
+            t0 = time.perf_counter()
+            memo[key] = make(n, seed=seed, test_frac=test_frac)
+            _DRAWS["drawn"] += 1
+            _DRAWS["draw_s"] += time.perf_counter() - t0
+        return tuple(a.copy() for a in memo[key])
+    return cached
+
+
+def reuse_dataset_draws() -> None:
+    """Route every registered dataset's ``make`` through a cache (module
+    doc, phase 25): the phases build their federations from the same
+    draws, and the mnist stand-in at 70,000 samples is seconds of host
+    numpy a draw.  A cached draw is the same bits as a fresh one."""
+    from repro_torch.data import registry as DR
+    for name in DR.dataset_names():
+        entry = DR.get_dataset(name)
+        DR.DATASETS.register(name, dataclasses.replace(
+            entry, make=_cached_make(entry.make)), overwrite=True)
 
 
 def max_err(a, b) -> float:
@@ -2977,29 +3042,327 @@ def phase_sweep(kernel_row, train_steps_per_s) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
-def phase_profile(pcfg) -> None:
-    """Where a training step's time goes: one round of the same
-    federation at fewer samples under torch.profiler -- device time by
-    kernel, and the device's busy share of the round's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def _profiled_round(pcfg) -> dict:
+    """One round of ``pcfg``'s federation under torch.profiler after a
+    warm round inside the profiler's warm-up cycle (a window opened
+    cold can miss its first kernels): ``_profile_rows`` and the round's
+    vfl_matmul launches (the count set to 0 just before, read just
+    after)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.core.protocol import (DeVertiFL, round_generator,
                                            train_generators)
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
     fed = DeVertiFL(pcfg, device="cuda")
     init_gen, _ = train_generators(pcfg.seed)
     params = fed.init_params(init_gen)
     opt_state = fed.opt.init(params)
     idx = fed.perms(round_generator(pcfg.seed, 0))
-    fed.run_round(params, opt_state, 0, idx)        # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fed.run_round(params, opt_state, 0, idx)    # warm
+        torch.cuda.synchronize()
+        prof.step()
+        vfl_matmul_clients.launches = 0
         t0 = time.perf_counter()
         fed.run_round(params, opt_state, 0, idx)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = vfl_matmul_clients.launches
     steps = pcfg.epochs * fed.n_batches
-    emit({"phase": "profile", "n_samples": pcfg.n_samples, "steps": steps,
-          **_profile_rows(prof, wall_ms, steps)})
+    return {"steps": steps, "vfl_matmul_launches": launches,
+            **_profile_rows(prof, wall_ms, steps),
+            "kernel_names": _kernel_names(prof)}
+
+
+def _kernel_names(prof) -> dict:
+    """Device kernels by name: launches in the profiled window."""
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type.name == "CUDA"
+            and not ev.key.startswith(_STEP_MARK)
+            and getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0)) > 0}
+
+
+def phase_profile(pcfg) -> dict:
+    """Where a training step's time goes: one round of the same
+    federation at fewer samples under torch.profiler -- device time by
+    kernel, and the device's busy share of the round's wall time."""
+    row = _profiled_round(pcfg)
+    emit({"phase": "profile", "n_samples": pcfg.n_samples,
+          **{k: v for k, v in row.items() if k != "kernel_names"}})
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the static auditor on the card
+# ---------------------------------------------------------------------------
+AUDIT_CLIENTS = 3
+# vfl_matmul launches a trace makes: the round runs twice (make_fx, then
+# the functionalized replay), and at the audit size a round is one batch,
+# so one launch a run.  A combo traces its round and its padded twin (the
+# deadness pass's), a lane case its two lane batches.
+AUDIT_LAUNCHES_A_TRACE = 2
+# the custom-op route against the raw launch on a production round: the
+# rounds of each, alternating, at the adversity combination's depth
+ROUTE_SAMPLES = 14000
+ROUTE_ROUNDS = 5
+
+
+def _audit_pcfg(**kw):
+    from repro_torch.core.protocol import ProtocolConfig
+    return ProtocolConfig(**{"dataset": "mnist", "n_clients": AUDIT_CLIENTS,
+                             "first_layer": "kernel", **kw})
+
+
+def _leaky_kernel_layer(model, pcfg, layout):
+    """The kernel lane's first layer plus the whole raw batch's mean in
+    every client's output: a leak outside the declared channels."""
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+
+    def first(params, xb, lay):
+        w, b = params["layer_0"]["kernel"], params["layer_0"]["bias"]
+        y = vfl_matmul_clients(xb, w, lay.offsets, lay.offsets, lay.sizes)
+        return torch.relu(y + b.unsqueeze(1)) + xb.mean()
+    return first
+
+
+def _unmasked_fedavg(stacked, client_mask=None):
+    """FedAvg whose term leaves the client mask out: a dead slot's
+    parameters enter the sum."""
+    from repro_torch.analysis import tag
+    from repro_torch.tree import tree_map
+
+    def avg(leaf):
+        term = tag(leaf, "term", "fedavg", client_axis=0)
+        m = tag(term.sum(0, keepdim=True) / client_mask.sum(), "declass",
+                "fedavg")
+        return m.expand_as(leaf)
+    return tree_map(avg, stacked)
+
+
+class _DriftImpl:
+    """A depth-0 schedule whose carried leaf comes back as float64."""
+
+    def __init__(self, n_clients):
+        self.n = n_clients
+
+    def init_state(self, sched):
+        return {"acc": torch.zeros(self.n, device=DEVICE)}
+
+    def round_start(self, state, lay, draws, round_idx):
+        return state, lay.client_mask
+
+    def select(self, state, h_now):
+        return h_now, state
+
+    def round_end(self, state):
+        return {"acc": (state["acc"] + 1.0).double()}
+
+
+def _branching_lane_layer(lb):
+    """The lane batch's kernel first layer plus an op where the lane
+    holds more than two clients, read on the host."""
+    from repro_torch.core.sweep import kernel_first_layer
+
+    def first(params, xb, lay):
+        h = kernel_first_layer(params, xb, lay)
+        if int((lay.sizes > 0).sum()) > 2:
+            h = h * 1.0
+        return h
+    return first
+
+
+def _planted_audits() -> dict:
+    """The five planted faults, each audited on the card; returns each
+    fault's codes (unwaived errors) and, for the leak, its chain."""
+    import repro_torch.core.protocol as P
+    from repro_torch.analysis import retrace as RT
+    from repro_torch.analysis.audit import audit
+    from repro_torch.kernels.vfl_matmul import ops as vfl_ops
+    from repro_torch.schedule import register_schedule
+
+    def codes(rep):
+        return sorted({f.code for f in rep.violations})
+    out = {}
+    if "leaky_audit" not in P.FIRST_LAYERS.names():
+        P.register_first_layer("leaky_audit", _leaky_kernel_layer)
+    rep = audit(_audit_pcfg(first_layer="leaky_audit"), passes=("taint",),
+                device=DEVICE)
+    chain = "\n".join(c for f in rep.violations for c in f.chain)
+    out["leaky_first_layer"] = {"codes": codes(rep),
+                                "chain_names_this_file":
+                                    "chip_smoke.py" in chain}
+    route = vfl_ops.auditing
+    vfl_ops.auditing = lambda: False
+    try:
+        rep = audit(_audit_pcfg(), passes=("taint",), device=DEVICE)
+    finally:
+        vfl_ops.auditing = route
+    out["custom_op_route_off"] = {"codes": codes(rep)}
+    fedavg = P.fedavg
+    P.fedavg = _unmasked_fedavg
+    try:
+        rep = audit(_audit_pcfg(n_clients=2, max_clients=3),
+                    passes=("deadness",), device=DEVICE)
+    finally:
+        P.fedavg = fedavg
+    out["unmasked_fedavg_term"] = {"codes": codes(rep)}
+    register_schedule("drift_audit", lambda n_clients, batch_size, width,
+                      args: _DriftImpl(n_clients), overwrite=True)
+    rep = audit(_audit_pcfg(schedule="drift_audit"), passes=("retrace",),
+                lane_check=False, device=DEVICE)
+    out["float64_carry"] = {"codes": codes(rep)}
+    found = RT.run_lane_check("mnist", DEVICE, cases=RT.LANE_CASES[:1],
+                              first_layer_fn=_branching_lane_layer)
+    out["lane_branch"] = {"codes": sorted({f.code for f in found})}
+    return out
+
+
+PLANTED_CODES = {"leaky_first_layer": "cross-client-flow",
+                 "custom_op_route_off": "opaque-write",
+                 "unmasked_fedavg_term": "unproven-dead-slot",
+                 "float64_carry": "carry-aval-drift",
+                 "lane_branch": "lane-retrace-divergence"}
+
+
+def _traced_is_untraced(lane) -> bool:
+    """A traced (audited) round from a fresh state is bitwise the same
+    round untraced from a copy of that state: the first stage's run, and
+    the graph the passes read (the second stage's) run anew."""
+    from repro_torch.analysis.audit import _TRACE_KW, TracedRound
+    from repro_torch.tree import tree_leaves, tree_map
+    tr = TracedRound(_audit_pcfg(first_layer=lane).replace(**_TRACE_KW),
+                     DEVICE)
+    params, opt_state, _, _ = tr.args
+    p, o, _, losses = tr.fed.run_round(tree_map(torch.clone, params),
+                                       tree_map(torch.clone, opt_state), 0,
+                                       tr.idx)
+    want = tree_leaves(p) + tree_leaves(o) + [losses]
+    return all(len(got) == len(want)
+               and all(torch.equal(a, b) for a, b in zip(got, want))
+               for got in (tr.graph.outputs, tr.graph.run(tr.args)))
+
+
+def _step_reading(row) -> dict:
+    return {k: row[k] for k in ("kernels_per_step", "vfl_matmul_launches")}
+
+
+def _kernels_only(names) -> dict:
+    """A profiled round's kernels: its device events less the copies and
+    sets (the round's pageable host-to-device copy of its batch indices
+    is not recorded in every window)."""
+    return {k: v for k, v in names.items()
+            if not k.startswith(("Memcpy", "Memset"))}
+
+
+def _name_diff(a, b) -> dict:
+    """Kernel names whose launches differ between two profiled rounds."""
+    return {k: (a.get(k, 0), b.get(k, 0)) for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def _route_reading(pcfg) -> dict:
+    """One federation's training round through the raw ctypes launch
+    (the production route) and through the custom op (the audit's route,
+    with the tags left off), alternating: steps/s of each, and the two
+    rounds' losses bitwise."""
+    from repro_torch.core.protocol import DeVertiFL
+    from repro_torch.kernels.vfl_matmul import ops as vfl_ops
+    fed = DeVertiFL(pcfg.replace(rounds=1), device=DEVICE)
+    fed.train()
+    raw_route = vfl_ops.auditing
+    rates, losses = {"raw": [], "custom_op": []}, {}
+    try:
+        for _ in range(ROUTE_ROUNDS):
+            for name in rates:
+                vfl_ops.auditing = raw_route if name == "raw" else \
+                    (lambda: True)
+                _dev_sync()
+                t0 = time.perf_counter()
+                out = fed.train()
+                _dev_sync()
+                wall = time.perf_counter() - t0
+                got = torch.as_tensor(out["history"][0]["round_losses"])
+                rates[name].append(got.numel() / wall)
+                losses.setdefault(name, got)
+    finally:
+        vfl_ops.auditing = raw_route
+    check(torch.equal(losses["raw"], losses["custom_op"]),
+          "a round through the custom op is not bitwise the raw launch's")
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    return {"n_samples": pcfg.n_samples, "steps": losses["raw"].numel(),
+            "steps_per_s": rates, "median_steps_per_s": med,
+            "custom_op_over_raw": med["custom_op"] / med["raw"]}
+
+
+def phase_audit(kernel_row, profile_pcfg, profile) -> None:
+    """The static auditor on the card (module doc, phase 15).  The step
+    outside the audit is held to the same profiled round taken just
+    before the audit: the process's first profiler session (the profile
+    phase's) may record kernels of its own."""
+    from repro_torch.analysis import retrace as RT
+    from repro_torch.analysis.audit import audit_combos, default_combos
+    from repro_torch.kernels.vfl_matmul import vfl_matmul_clients
+    before = _profiled_round(profile_pcfg)
+    t_phase = time.perf_counter()
+    n_combos = len(default_combos(first_layers=("kernel",), device=DEVICE))
+    stamps = []
+    vfl_matmul_clients.launches = 0
+    rep = audit_combos(first_layers=("kernel",), n_clients=AUDIT_CLIENTS,
+                       device=DEVICE, progress=lambda msg: stamps.append(
+                           (msg, time.perf_counter())))
+    launches = vfl_matmul_clients.launches
+    stamps.append(("", time.perf_counter()))
+    rows = [{"step": msg, "s": t1 - t0}
+            for (msg, t0), (_, t1) in zip(stamps, stamps[1:])]
+    check(rep.ok and rep.static_round_traces == 1
+          and len(rep.combos) == n_combos,
+          f"the kernel-lane audit grid is not clean:\n{rep.summary()}")
+    implied = AUDIT_LAUNCHES_A_TRACE * (2 * n_combos + 2 * len(RT.LANE_CASES))
+    check(launches == implied,
+          f"the audit launched vfl_matmul {launches} times, expected "
+          f"{implied} ({n_combos} combos and {len(RT.LANE_CASES)} lane "
+          f"cases, two traces each, {AUDIT_LAUNCHES_A_TRACE} launches a "
+          f"trace)")
+    t0 = time.perf_counter()
+    bitwise = {lane: _traced_is_untraced(lane) for lane in ("kernel",
+                                                             "slice")}
+    check(all(bitwise.values()),
+          f"a traced round is not bitwise the untraced one: {bitwise}")
+    planted = _planted_audits()
+    for name, code in PLANTED_CODES.items():
+        check(code in planted[name]["codes"],
+              f"planted fault {name} not flagged {code}: {planted[name]}")
+    check(planted["leaky_first_layer"]["chain_names_this_file"],
+          "the leak's chain does not name chip_smoke.py")
+    checks_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    after = _profiled_round(profile_pcfg)
+    diff = _name_diff(_kernels_only(before["kernel_names"]),
+                      _kernels_only(after["kernel_names"]))
+    check(after["vfl_matmul_launches"] == before["vfl_matmul_launches"]
+          and not diff,
+          f"outside the audit a round's kernels differ from the one before "
+          f"it: {_step_reading(before)} against {_step_reading(after)}; "
+          f"kernels {diff}")
+    route = _route_reading(profile_pcfg.replace(n_samples=ROUTE_SAMPLES))
+    kernel_row["audit_launches"] = launches
+    emit({"phase": "audit", "combos": n_combos, "rows": rows,
+          "channels": rep.channels,
+          "static_round_traces": rep.static_round_traces,
+          "traced_bitwise_untraced": bitwise, "planted": planted,
+          "vfl_matmul_launches": launches,
+          "vfl_matmul_launches_implied": implied, "checks_s": checks_s,
+          "seconds": seconds,
+          "step_before_audit": _step_reading(before),
+          "step_after_audit": _step_reading(after),
+          "kernels_a_round": [sum(_kernels_only(r["kernel_names"]).values())
+                              for r in (before, after)],
+          "profile_phase_step": _step_reading(profile),
+          "vs_profile_phase": _name_diff(profile["kernel_names"],
+                                         after["kernel_names"]),
+          "custom_op_route": route})
 
 
 # the names of the port's kernels begin so (csrc/*.cu)
@@ -3019,6 +3382,11 @@ KERNEL_KINDS = (("port", tuple("(anonymous namespace)::" + stem
                 ("copy", ("copy", "CatArray")))
 
 
+# a profiler schedule's step annotation, which the device trace also
+# holds: a span over the window, not a kernel
+_STEP_MARK = "ProfilerStep"
+
+
 def _profile_rows(prof, wall_ms, steps) -> dict:
     """Device time by kernel, and the device's busy share of the wall
     time, from a torch.profiler run over ``steps`` steps."""
@@ -3026,7 +3394,8 @@ def _profile_rows(prof, wall_ms, steps) -> dict:
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
-        if us > 0 and ev.device_type.name == "CUDA":
+        if us > 0 and ev.device_type.name == "CUDA" and \
+                not ev.key.startswith(_STEP_MARK):
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
@@ -5061,6 +5430,7 @@ def phase_dryrun(measured) -> None:
 
 def main() -> None:
     info = phase_device()
+    reuse_dataset_draws()
     phase_build()
     kernel_row = phase_kernel()
     attn_row = phase_attn_kernel()
@@ -5076,7 +5446,9 @@ def main() -> None:
     phase_serve_fed(kernel_row, sess)
     phase_sweep(kernel_row, train_out["steps_per_s"])
     phase_adversity(kernel_row, pcfg)
-    phase_profile(pcfg.replace(n_samples=4000))
+    profile_pcfg = pcfg.replace(n_samples=4000)
+    profile = phase_profile(profile_pcfg)
+    phase_audit(kernel_row, profile_pcfg, profile)
     phase_serve(attn_row)
     phase_serve_moe(router_row, attn_row)
     phase_serve_rwkv(rwkv_row)
@@ -5087,6 +5459,7 @@ def main() -> None:
                                             rwkv_row, mamba_row)}
     measured.update(phase_exchange(attn_row))
     phase_dryrun(measured)
+    emit({"phase": "datasets", **_DRAWS})
     emit({"kernels": [kernel_row, attn_row, router_row, rwkv_row,
                       mamba_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -29,7 +29,13 @@ clients (``Session.server``/``serve``, ``repro_torch.serving``)::
 
     report = sess.serve([ServeRequest(uid=i, slices=split_features(
         sess.federation.layout, row)) for i, row in enumerate(rows)])
+
+``audit(spec)`` statically audits a spec's round (privacy flow, padded
+slots, retrace hazards; ``repro_torch.analysis``) and returns an
+:class:`AnalysisReport`.
 """
+from repro_torch.analysis import AnalysisReport  # noqa: F401
+from repro_torch.analysis.audit import audit  # noqa: F401
 from repro_torch.api.spec import ExperimentSpec, HASH_EXCLUDE  # noqa: F401
 from repro_torch.api.modes import (  # noqa: F401
     ModeEntry, get_mode, mode_names, register_mode,

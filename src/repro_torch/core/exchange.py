@@ -7,11 +7,12 @@ fault and serving layers: ``scheduled_exchange`` (the exchange over a
 schedule's reference stack), ``screen_exchange`` (the fault layer's
 guard) and ``select_cached_exchange`` (the serving cache's splice).
 
-The JAX package wraps the cross-client terms in
-``repro.analysis.barrier.tag``, an identity outside its static audit.
-The port has no ``tag`` until the auditor is ported (ROADMAP.md, Queue
-1 item 7); a one-line comment marks each site where the reference
-declassifies.
+The cross-client terms pass through ``repro_torch.analysis.barrier.tag``,
+the static auditor's marker (``repro_torch.analysis``): ``x`` itself
+outside an audit trace, so a production step issues no op for it.  A
+term tag names its client axis: 0 for one federation's [n, ...] stack,
+and for a lane batch the client axis of the [L, n, ...] lane view (axis
+1), the n slots of each lane.
 
 Lane batches: the JAX package runs a sweep's federations as lanes of a
 ``vmap``; the port stacks them on the client axis instead, lane-major
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.barrier import tag
 from repro_torch.tree import tree_map
 
 
@@ -62,11 +64,10 @@ def _exchange_sum(h, client_mask):
     if client_mask is None:
         hm, dim = h, 0
     else:
-        # reference: tag(h * mask, "term", "exchange", client_axis=0)
-        hm = by_lane(h, client_mask) * client_mask[..., None, None]
         dim = client_mask.dim() - 1
-    # reference: tag(hm.sum(...), "declass", "exchange")
-    return hm.sum(dim=dim, keepdim=True), hm
+        hm = tag(by_lane(h, client_mask) * client_mask[..., None, None],
+                 "term", "exchange", client_axis=dim)
+    return tag(hm.sum(dim=dim, keepdim=True), "declass", "exchange"), hm
 
 
 def scheduled_exchange(h_all, h_ref, eff_mask):
@@ -123,18 +124,19 @@ def fedavg(stacked_params, client_mask=None):
     """
     if client_mask is None:
         def avg(leaf):
-            # reference: tag(leaf.mean(...), "declass", "fedavg")
-            return leaf.mean(dim=0, keepdim=True).expand_as(leaf)
+            return tag(leaf.mean(dim=0, keepdim=True), "declass",
+                       "fedavg").expand_as(leaf)
     else:
         dim = client_mask.dim() - 1
         inv_live = 1.0 / client_mask.sum(dim=dim, keepdim=True)
 
         def avg(leaf):
             tail = (1,) * (leaf.dim() - 1)
-            term = by_lane(leaf, client_mask) * \
-                client_mask.reshape(client_mask.shape + tail)
-            # reference: tag(term.sum(...) * inv_live, "declass", "fedavg")
-            m = term.sum(dim=dim, keepdim=True) * \
-                inv_live.reshape(inv_live.shape + tail)
+            term = tag(by_lane(leaf, client_mask)
+                       * client_mask.reshape(client_mask.shape + tail),
+                       "term", "fedavg", client_axis=dim)
+            m = tag(term.sum(dim=dim, keepdim=True)
+                    * inv_live.reshape(inv_live.shape + tail),
+                    "declass", "fedavg")
             return m.expand_as(term).reshape(leaf.shape)
     return tree_map(avg, stacked_params)

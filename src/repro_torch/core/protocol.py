@@ -78,6 +78,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.barrier import tag
 from repro_torch.configs import get_config
 from repro_torch.core import partition as PT
 from repro_torch.core.draws import CounterDraws
@@ -334,16 +335,20 @@ def _ce(logits, labels):
 
 def _masked_mean(values, client_mask):
     """Mean over live clients: sum(v * mask) * (1/n_live); [L] for a
-    lane batch's [L, n] mask, 0-d for one federation."""
-    return (by_lane(values, client_mask) * client_mask).sum(-1) * \
-        (1.0 / client_mask.sum(-1))
+    lane batch's [L, n] mask, 0-d for one federation.  The mask-weighted
+    term is tagged on its client axis (the last)."""
+    term = tag(by_lane(values, client_mask) * client_mask, "term", "loss",
+               client_axis=client_mask.dim() - 1)
+    return term.sum(-1) * (1.0 / client_mask.sum(-1))
 
 
 def _masked_hidden_sum(h_all, client_mask):
     """[n, B, H] -> [B, H] exchange sum excluding dead clients ([L, B,
     H], a sum a lane, for a lane batch)."""
-    return (by_lane(h_all, client_mask) * client_mask[..., None, None]
-            ).sum(dim=client_mask.dim() - 1)
+    dim = client_mask.dim() - 1
+    hm = tag(by_lane(h_all, client_mask) * client_mask[..., None, None],
+             "term", "exchange", client_axis=dim)
+    return tag(hm.sum(dim=dim), "declass", "exchange")
 
 
 def _to_clients(t, client_mask):

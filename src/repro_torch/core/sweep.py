@@ -596,16 +596,19 @@ def _init_lanes(model, opt, lanes, device):
     return params, opt.init(params)
 
 
-def build_lane_batch(dataset, mode, scfg: SweepConfig,
-                     device=None) -> LaneBatch:
+def build_lane_batch(dataset, mode, scfg: SweepConfig, device=None,
+                     max_clients=None, width=None) -> LaneBatch:
     """Assemble the obs x transforms x faults x schedules x
     client_counts x seeds lane batch of one (dataset, mode) pair on
     ``device`` (CUDA unless the caller names another): stacked data and
     layouts, per-lane inits, the engine's shared impl and per-lane
-    state, the round."""
+    state, the round.  ``max_clients`` (default: the largest count) and
+    ``width`` (default: the widest live slice) pin the padded client
+    axis and the slice lane's gather width, so batches of other counts
+    can share one round body (``repro_torch.analysis.retrace``)."""
     device = resolve_device(device)
     counts, seeds = tuple(scfg.client_counts), tuple(scfg.seeds)
-    max_c = max(counts)
+    max_c = max_clients or max(counts)
     pcfg = ProtocolConfig(
         dataset=dataset, n_clients=min(counts), max_clients=max_c,
         rounds=scfg.rounds, epochs=scfg.epochs,
@@ -614,9 +617,10 @@ def build_lane_batch(dataset, mode, scfg: SweepConfig,
         n_samples=scfg.n_samples, first_layer=scfg.first_layer)
     n_tile = max(1, len(scfg.obs) * len(scfg.transforms)
                  * len(scfg.faults) * len(scfg.schedules))
-    xtr, ytr, xte, yte, lay, lanes, width = _stacked_lanes(
+    xtr, ytr, xte, yte, lay, lanes, widest = _stacked_lanes(
         dataset, counts, seeds, scfg.n_samples, max_c, device,
         n_tile=n_tile)
+    width = width or widest
     # one lane's model: its layers run every lane's stacked parameters
     model = PaperMLP(get_config(arch_for(dataset)), max_c)
     n_train = xtr.shape[1]

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.barrier import tag
 from repro_torch.core.exchange import screen_exchange
 from repro_torch.schedule.engine import over_rows, per_slot, ring_read
 
@@ -58,8 +59,10 @@ _PER_CLIENT = ("crash_left", "strag_mask", "corrupt_mask", "quar", "live",
 def _alive_or(masked, fallback):
     """``masked`` unless it kills every client of its lane, else
     ``fallback`` (``masked``/``fallback`` [n] or [L, n])."""
-    # reference: tag(masked.sum(), "declass", "fault"), the liveness bit
-    return torch.where(masked.sum(-1, keepdim=True) > 0, masked, fallback)
+    # the liveness bit aggregates every slot's fate: declassified through
+    # the declared fault channel
+    alive = tag(masked.sum(-1, keepdim=True), "declass", "fault") > 0
+    return torch.where(alive, masked, fallback)
 
 
 def _per_lane_sum(v, like):

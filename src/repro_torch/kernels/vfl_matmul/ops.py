@@ -21,6 +21,15 @@ n)``, a function of the shapes alone, picks the kernel and its launch:
 
 Both sum every output in the same order, so they give the same bits.
 
+Under the static audit (``repro_torch.analysis``: ``auditing()`` is
+true) a CUDA forward goes through ``torch.ops.repro_torch.
+vfl_matmul_clients``, a ``torch.library.custom_op`` whose CUDA
+implementation is the same launch and whose fake implementation is
+built from the shapes: a trace then holds the kernel as one node with x,
+w and the offset tensors as its inputs.  The raw ``ctypes`` launch is
+invisible to a trace (it writes an output allocated by ``torch.empty``),
+so outside the audit nothing changes.
+
 ``vfl_matmul(x_local, w_full, offset, gate=None)`` keeps the JAX
 package's signature (``repro.kernels.vfl_matmul.vfl_matmul``): one
 client, ``x_off = 0``, ``w_off = offset``.
@@ -45,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.barrier import auditing
 from repro_torch.kernels.vfl_matmul.ref import vfl_matmul_clients_ref
 
 # the kernels' tiles (csrc/vfl_matmul.cu's constants; its launcher
@@ -170,9 +180,26 @@ def empty_launch(device=None):
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
+@torch.library.custom_op("repro_torch::vfl_matmul_clients", mutates_args=())
+def _clients_op(x: torch.Tensor, w: torch.Tensor, x_off: torch.Tensor,
+                w_off: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """The kernel as one dispatcher op (module doc): the launch on CUDA,
+    the plain version on the CPU."""
+    if x.device.type == "cuda":
+        return _launch(x, w, x_off, w_off, sizes)
+    return vfl_matmul_clients_ref(x, w, x_off, w_off, sizes)
+
+
+@_clients_op.register_fake
+def _(x, w, x_off, w_off, sizes):
+    return x.new_empty((w.shape[0], x.shape[0], w.shape[2]))
+
+
 def _forward(x, w, x_off, w_off, sizes):
     _check(x, w, x_off, w_off, sizes)
     if x.device.type == "cuda":
+        if auditing():
+            return _clients_op(x, w, x_off, w_off, sizes)
         return _launch(x, w, x_off, w_off, sizes)
     if x.device.type == "cpu":
         return vfl_matmul_clients_ref(x, w, x_off, w_off, sizes)

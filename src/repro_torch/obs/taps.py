@@ -42,6 +42,7 @@ import inspect
 
 import torch
 
+from repro_torch.analysis.barrier import tag
 from repro_torch.core.exchange import by_lane
 from repro_torch.schedule.engine import per_slot
 from repro_torch.tree import tree_leaves
@@ -196,8 +197,8 @@ class ObsImpl:
         # per-client L2 norm of the RELEASED stack (post-wire,
         # post-schedule): what crossed to peers this step
         if self.static_level >= 2:
-            # reference: tag(sqrt(sum(h_ref^2)), "declass", "obs")
-            exn = torch.sqrt(_row_sums((h_ref * h_ref).flatten(1)))
+            exn = tag(torch.sqrt(_row_sums((h_ref * h_ref).flatten(1))),
+                      "declass", "obs")
             st["o_exn"] = st["o_exn"] + \
                 per_slot(st["full_on"], exn.shape[0]) * exn
         return h_ref, st
@@ -211,15 +212,15 @@ class ObsImpl:
         st = dict(state)
         m = lay.client_mask
         loss = (by_lane(losses, m) * m).sum(-1) / m.sum(-1).clamp(min=1.0)
-        # reference: tag(loss, "declass", "obs")
-        st["o_loss"] = st["o_loss"] + st["tap_on"] * loss
+        st["o_loss"] = st["o_loss"] + st["tap_on"] * \
+            tag(loss, "declass", "obs")
         st["o_steps"] = st["o_steps"] + st["tap_on"]
         if self.static_level >= 2:
             flat = torch.cat([g.flatten(1) for g in tree_leaves(grads)], 1)
             gn2 = _row_sums(flat * flat)
-            # reference: tag(sqrt(gn2), "declass", "obs")
             st["o_gn"] = st["o_gn"] + \
-                per_slot(st["full_on"], gn2.shape[0]) * torch.sqrt(gn2)
+                per_slot(st["full_on"], gn2.shape[0]) * \
+                tag(torch.sqrt(gn2), "declass", "obs")
         return st
 
     def round_end(self, state):

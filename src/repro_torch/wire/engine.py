@@ -33,6 +33,7 @@ import inspect
 import numpy as np
 import torch
 
+from repro_torch.analysis.barrier import tag
 from repro_torch.schedule.engine import per_slot
 from repro_torch.wire.codecs import WIRE_TAG, wire_apply, wire_bytes
 
@@ -132,7 +133,9 @@ class WireImpl:
         st = dict(state)
         h_tx = wire_apply(h_now, self._draws, self._step,
                           **self._gates(st, h_now.shape[0]))
-        # reference: tag(h_tx, "declass", "wire"), the release point
+        # the declared release point: everything downstream (rings, guards,
+        # the exchange sum) consumes wire data, never a raw hidden
+        h_tx = tag(h_tx, "declass", "wire")
         self._step += 1
         h_ref, st["inner"] = self.inner.select(st["inner"], h_tx)
         return h_ref, st

@@ -2,10 +2,20 @@
 reference import and the runs that feed both packages the same inputs.
 
 The JAX package's protocol stack imports ``jax.core.Primitive``, which
-jax 0.9 moved to ``jax.extend.core``.  ``reference()`` sets that name,
-imports the reference, and on exit removes both the name and every
-``repro`` module it imported, so the modules that other test files see
-are exactly those they would have seen without it.  Test files use it
+jax 0.9 moved to ``jax.extend.core``; its auditor reads ``ClosedJaxpr``,
+``Jaxpr``, ``Literal`` and ``DropVar`` (in ``jax._src.core``) too.  ``reference()``
+sets those names, imports the reference, and on exit removes the names
+and every ``repro`` module it imported, so the modules that other test
+files see are exactly those they would have seen without it.
+
+Two more patches let the reference's auditor read a jax 0.9 jaxpr, both
+undone on exit: jax 0.9 names the ``pjit`` primitive ``jit``, which
+``repro.analysis.ir.INLINE_CALLS`` lacks (every call would fall to the
+conservative default rule), and lowers a split to a ``split`` primitive
+the taint interpreter has no rule for (``_split_rule`` cuts a per-slot
+taint along the split axis as ``_slice`` does).  Without them the
+reference reports a false ``cross-client-flow`` for every optimizer
+leaf.  Test files use it
 from a module-scoped fixture, never at import time: the test workers
 import every file, and a shim applied then would change how later
 files are collected.
@@ -72,7 +82,20 @@ _REFERENCE_MODULES = {
     "dryrun_federated": "repro.launch.dryrun_federated",
     "roofline_analysis": "repro.roofline.analysis",
     "hlo_costs": "repro.roofline.hlo_costs",
+    "analysis": "repro.analysis",
+    "analysis_audit": "repro.analysis.audit",
+    "analysis_ir": "repro.analysis.ir",
+    "analysis_taint": "repro.analysis.taint",
+    "analysis_deadness": "repro.analysis.deadness",
+    "analysis_retrace": "repro.analysis.retrace",
+    "analysis_report": "repro.analysis.report",
 }
+
+# names the JAX package reads from ``jax.core`` that jax 0.9 keeps only
+# in ``jax.extend.core`` (``DropVar`` only in ``jax._src.core``):
+# Primitive for the protocol stack, the others for the auditor
+# (``repro/analysis/ir.py``, ``taint.py``)
+_CORE_NAMES = ("Primitive", "ClosedJaxpr", "Jaxpr", "Literal", "DropVar")
 
 
 def _forget(before):
@@ -93,9 +116,12 @@ def reference():
     threads = torch.get_num_threads()
     with pytest.MonkeyPatch.context() as mp:
         import jax
+        import jax._src.core
         import jax.extend
-        mp.setattr(jax.core, "Primitive", jax.extend.core.Primitive,
-                   raising=False)
+        for name in _CORE_NAMES:
+            mp.setattr(jax.core, name, getattr(
+                jax.extend.core, name, getattr(jax._src.core, name)),
+                raising=False)
         torch.set_num_threads(1)
         # repro.launch.dryrun sets XLA_FLAGS to 512 host devices when
         # imported (dryrun.py:8); with the backend already up that
@@ -108,10 +134,35 @@ def reference():
                 env.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
                 ns = {k: importlib.import_module(v)
                       for k, v in _REFERENCE_MODULES.items()}
+            _patch_auditor(mp, ns)
             yield types.SimpleNamespace(jax=jax, jnp=jax.numpy, **ns)
         finally:
             torch.set_num_threads(threads)
             _forget(before)
+
+
+def _split_rule(taint, rule):
+    """The reference taint interpreter's ``rule`` with a rule for jax
+    0.9's ``split``: a per-slot taint on the split axis is cut by
+    ``sizes``; any other taint passes to every piece."""
+    def patched(self, eqn, in_abs, in_conc):
+        if eqn.primitive.name != "split":
+            return rule(self, eqn, in_abs, in_conc)
+        a, axis = in_abs[0], eqn.params["axis"]
+        sizes = eqn.params["sizes"]
+        if a.axis != axis:
+            return [a] * len(sizes)
+        starts = np.cumsum((0,) + tuple(sizes))
+        return [taint.perslot(axis, a.bits[s:s + n].copy())
+                for s, n in zip(starts, sizes)]
+    return patched
+
+
+def _patch_auditor(mp, ns):
+    ir, taint = ns["analysis_ir"], ns["analysis_taint"]
+    mp.setattr(ir, "INLINE_CALLS", tuple(ir.INLINE_CALLS) + ("jit",))
+    mp.setattr(taint.TaintInterpreter, "rule",
+               _split_rule(taint, taint.TaintInterpreter.rule))
 
 
 def chip_smoke():
@@ -191,11 +242,18 @@ def assert_replays(ref_run, fed, losses, params, min_agree=0.995,
 def test_reference_leaves_modules_as_it_found_them():
     import jax
     before = set(sys.modules)
-    had_primitive = "Primitive" in vars(jax.core)
+    had = {name: name in vars(jax.core) for name in _CORE_NAMES}
     with reference() as ref:
         assert ref.protocol.DeVertiFL is not None
         assert "repro.core.protocol" in sys.modules
-    assert ("Primitive" in vars(jax.core)) == had_primitive
+        assert "jit" in ref.analysis_ir.INLINE_CALLS
+        taint_cls = ref.analysis_taint.TaintInterpreter
+        assert "rule" in vars(taint_cls)
+        patched_rule = taint_cls.rule
+    assert {name: name in vars(jax.core) for name in _CORE_NAMES} == had
+    # the auditor's patches are undone on the modules themselves too
+    assert "jit" not in ref.analysis_ir.INLINE_CALLS
+    assert taint_cls.rule is not patched_rule
     added = {m for m in set(sys.modules) - before
              if m == "repro" or m.startswith("repro.")}
     assert not added, sorted(added)
@@ -328,3 +386,48 @@ def engine_traj(device="cpu", **kw):
             sched, draws.round(r))
         losses.append(lr.cpu().numpy())
     return (np.concatenate(losses), fed.evaluate(params), fed, sched)
+
+
+def audit_grid(engine: bool):
+    """The reference's default audit grid at 3 clients (38 mode x
+    schedule x first-layer x fault x transform combos on mnist; the
+    port's ``default_combos`` builds it by the same arithmetic), split
+    in two for two test files: the combos with a fault plan or a wire
+    transform (``engine``), or the others."""
+    from repro_torch.analysis.audit import default_combos
+    return [c for c in default_combos(device="cpu")
+            if (c[3] != "none" or c[4] != "none") == engine]
+
+
+def combo_id(combo) -> str:
+    from repro_torch.analysis.audit import combo_name
+    from repro_torch.core.protocol import ProtocolConfig
+    return combo_name(ProtocolConfig(**_combo_kw(combo)))
+
+
+def _combo_kw(combo):
+    mode, schedule, first_layer, fault, transform = combo
+    return dict(dataset="mnist", n_clients=3, mode=mode, schedule=schedule,
+                first_layer=first_layer, fault=fault, transform=transform)
+
+
+def assert_audits_alike(ref, combo):
+    """One combo audits clean in the port and in the reference, with
+    the same set of channels seen; the reference's ``pallas`` lane is
+    the port's ``kernel`` lane.  Channel counts are not compared: the
+    port unrolls the round's Python loop over batches where the
+    reference traces one ``lax.scan`` body, and the port's backward
+    re-tags a declared channel's cotangent wherever autograd runs it."""
+    from repro_torch.analysis.audit import audit
+    from repro_torch.core.protocol import ProtocolConfig
+    kw = _combo_kw(combo)
+    ref_kw = {**kw, "first_layer": {"kernel": "pallas"}.get(
+        kw["first_layer"], kw["first_layer"])}
+    theirs = ref.analysis_audit.audit(ref.protocol.ProtocolConfig(**ref_kw),
+                                      lane_check=False)
+    ours = audit(ProtocolConfig(**kw), lane_check=False, device="cpu")
+    assert theirs.ok, theirs.summary()
+    assert ours.ok, ours.summary()
+    assert set(ours.channels) == set(theirs.channels), (ours.channels,
+                                                        theirs.channels)
+    assert ours.static_round_traces == theirs.static_round_traces == 1
