@@ -44,8 +44,8 @@
 //     sum of the unrounded float32 P, until the end.
 //   - P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), both fed from
 //     registers (the accumulator layout of S is the A-fragment layout of P)
-//     to two wgmma m64n{hd}k16 against the same V tile, accumulating O in
-//     float32.  A single bf16 rounding of P, as SDPA and FlashAttention do,
+//     to two wgmma m64n{hd}k16 against the same V tile, into a tile
+//     accumulator that O (float32) then adds on the CUDA cores.  A single bf16 rounding of P, as SDPA and FlashAttention do,
 //     errs by ~2^-9 of sqrt(sum p^2 v^2) on every output, which on outputs
 //     near zero is far over the float32-accurate contract chip_smoke.py
 //     holds the kernel to; the split leaves ~2^-17 of it, below float32's
@@ -453,9 +453,9 @@ flash_attention_wgmma_kernel(const Params p) {
   }
 
 
-  float o[NO];
+  float o[NO], pv[NO];
 #pragma unroll
-  for (int x = 0; x < NO; ++x) o[x] = 0.f;
+  for (int x = 0; x < NO; ++x) o[x] = pv[x] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const uint32_t qbase = base + L::Q_OFF;
 
@@ -523,24 +523,31 @@ flash_attention_wgmma_kernel(const Params p) {
       }
     }
 
-    // O += P_hi . V + P_lo . V; V MN-major: 64-column subtiles 8 KB apart
+    // pv = P_hi . V + P_lo . V for this tile alone (its first product
+    // overwrites pv), then O += pv on the CUDA cores: the tensor cores'
+    // accumulation, fed every tile of a long row into O, drifts (qwen2-7b's
+    // 32,768-row prefill read up to 3.1x float32's own floor); a tile's 8
+    // products summed there do not.  V MN-major: 64-column subtiles 8 KB
+    // apart
     const uint32_t vst = base + L::V_OFF + st * L::KV_TILE;
-    fence_regs(o);
+    fence_regs(pv);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = smem_desc(vst + kk * 16 * 128, L::KV_SUB, 1024);
       if constexpr (HD == 64) {
-        mma_rs_n64(o, ph[kk], dv, 1);
-        mma_rs_n64(o, pl[kk], dv, 1);
+        mma_rs_n64(pv, ph[kk], dv, kk > 0);
+        mma_rs_n64(pv, pl[kk], dv, 1);
       } else {
-        mma_rs_n128(o, ph[kk], dv, 1);
-        mma_rs_n128(o, pl[kk], dv, 1);
+        mma_rs_n128(pv, ph[kk], dv, kk > 0);
+        mma_rs_n128(pv, pl[kk], dv, 1);
       }
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+    fence_regs(pv);
+#pragma unroll
+    for (int x = 0; x < NO; ++x) o[x] += pv[x];
   }
   cp_async_wait<0>();
 

@@ -2,9 +2,10 @@
 cache.  The port of ``repro.launch.serve``.
 
 Any architecture of the LM zoo (``--arch qwen2-7b``, ``--arch
-deepseek-moe-16b``, ``--arch rwkv6-1.6b``, ``--arch jamba-v0.1-52b``,
-``--arch llava-next-34b``, ``--arch seamless-m4t-medium``; mixtral-8x22b
-and the full 32-layer jamba do not fit one card).  An encoder-decoder
+gemma2-2b``, ``--arch qwen1.5-4b``, ``--arch deepseek-moe-16b``, ``--arch
+rwkv6-1.6b``, ``--arch jamba-v0.1-52b``, ``--arch llava-next-34b``,
+``--arch seamless-m4t-medium``; mixtral-8x22b at its full 56 layers and
+the full 32-layer jamba do not fit one card).  An encoder-decoder
 (seamless) decodes over the zero encoder memory ``init_decode_state``
 makes, as the reference's ``launch/serve.py`` does.  On the GPU, at
 full width with random weights::
