@@ -7,7 +7,11 @@ Phases, each printing one JSON line:
   1. device   requires CUDA (exits 1 without it), prints nvidia-smi's
               name and power limit, the torch and CUDA versions, and
               the TF32 switches (both off: the reference is float32)
-  2. build    builds every kernel from the sources in this checkout
+  2. build    builds every kernel from the sources in this checkout;
+              flash_attention_wgmma.cu's hd-256 instantiations (two
+              warpgroups a block) on a line of their own: ptxas's
+              registers and spill bytes (0 required) and the shared
+              memory a block (at most 227 KB)
   3. kernel   holds each kernel against its plain PyTorch version at
               the shapes the training path gives it (forward, dx, dW,
               gate 0 and 1), each case also through the other of
@@ -28,21 +32,29 @@ Phases, each printing one JSON line:
               llava-next-34b prefill at S = 3392 and decode at B = 8
               over 3456 ring slots, group 7; the zoo's at the first zoo
               prompt's length: gemma2-2b's local and global prefills,
-              hd 256 with softcap 50 on the CUDA-core route, qwen2-7b-swa
-              and mixtral-8x22b windowed prefills, qwen1.5-4b at group
+              hd 256 with softcap 50 on the tensor-core route,
+              qwen2-7b-swa and mixtral-8x22b windowed prefills,
+              qwen1.5-4b at group
               1, and each decode step over its 4,096-slot ring wrapped or
               gemma2's 8,192 global slots), at the training path's
               (qwen1.5-0.5b's B = 8 at S = 256, 16 heads of 64;
               seamless's encoder at B = 2) and at the Pallas options
               the path does not use (window, softcap, hd 64 and 256,
-              float32, tails of rows and keys), element by element
-              against the plain float32 result, each case naming the
+              float32, tails of rows and keys; a softcap of 2, where
+              the kernel's tanh takes both its branches), element by
+              element against the plain float32 result, each case naming the
               route it ran (ops.route: wgmma, split_k_wgmma, split_k,
-              cuda_cores); five planted faults (window and causal mask
-              off by one, a ring tile dropped, one split's partial left
-              out of the combine, a non-causal call's last key tile
-              skipped) must fail that check; and times kernel, plain
-              version, bound and scaled_dot_product_attention
+              cuda_cores); every bf16 hd-256 case also through the
+              CUDA-core kernels of flash_attention.cu, launched directly
+              (the route's "before"), held to the same limit; seven
+              planted faults (window and causal mask off by one, a ring
+              tile dropped, one split's partial left out of the combine,
+              a non-causal call's last key tile skipped; at hd 256
+              gemma2's global prefill with each row seeing the next key
+              and its decode with one 64-slot tile of the ring dropped)
+              must fail that check; and times kernel, plain version,
+              bound and scaled_dot_product_attention, and at gemma2's
+              four shapes the CUDA-core kernels on the same inputs
   5. moe_router
               holds moe_router against its plain version at the MoE
               serving paths' shapes (T = 8 a decode step, 1326 and 1536
@@ -203,7 +215,11 @@ Phases, each printing one JSON line:
               1), (partial:0.5, 2) bitwise their standalone runs) and a
               fault x transform grid the same way; steps/s of each
               variant beside sync's, lane-steps/s
- 14. profile  where a training step's time goes (torch.profiler)
+ 14. profile  where a training step's time goes (torch.profiler): a
+              round in the profiler's active window, PROFILE_PAD_S of
+              host idle on either side of the step into that window; a
+              window holding fewer vfl_matmul kernels than the wrapper
+              counted lost device records and is taken again (takes)
  15. audit    the static auditor (repro_torch.analysis) on the card: the
               default audit grid on the kernel lane (mnist, 3 clients:
               every federated mode x the shipped schedules, the composite
@@ -318,7 +334,7 @@ Phases, each printing one JSON line:
               width, bf16, random weights drawn on the card, each through
               ServingEngine with every count set to 0 just before and
               read just after and a rerun bitwise: gemma2-2b (26 layers,
-              hd 256: the CUDA-core route, local/global layers, softcaps)
+              hd 256, local/global layers, softcaps)
               on 8 slots of 8,192, 12 requests of 4,200-6,000 tokens
               (numpy seed 0), 32 new; qwen1.5-4b (40 layers, MHA, QKV
               bias) on the text traffic of serve; qwen1.5-4b-swa on the
@@ -335,9 +351,11 @@ Phases, each printing one JSON line:
               against forward for that request (stale rings must fail;
               mixtral at a capacity factor that drops no route);
               mixtral's routes against the plain router (two planted
-              faults); gemma2's final softcap on lifted logits (the cap
-              off must pass 30); launch.serve's main (--arch gemma2-2b)
-              once; tokens/s, TTFT, step ms, peak, profiles.  Between
+              faults); each prefill profile's attention kernels all the
+              tensor-core kernel; gemma2's final softcap on lifted
+              logits (the cap off must pass 30); launch.serve's main
+              (--arch gemma2-2b) once; tokens/s, TTFT, step ms, peak,
+              profiles.  Between
               the configurations, on their trees, the input shapes
               long_500k (qwen1.5-4b-swa: 524,288 tokens at B = 1, the
               key loop stopping at the window, the rings' positions, 32
@@ -411,7 +429,8 @@ Phases, each printing one JSON line:
  26. dryrun   the one-card dry run: python -m repro_torch.launch.dryrun
               over every ARCHS x SHAPES pair at 16 clients under
               zeropad_psum, in a process of its own (the meta device:
-              no card, no memory), one line a record, every record ok
+              no card, no memory) started after the build and run
+              beside phases 3-25, one line a record, every record ok
               or skipped with the reference's reason; qwen1.5-0.5b
               counted at train_lm's 8 x 256 (one client, and 16 in
               each mode): the counted bound at or under the step's
@@ -440,6 +459,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -717,6 +737,31 @@ def _ptxas_lines(log) -> list:
     return out
 
 
+# flash_attention_wgmma.cu's hd-256 instantiations, by their mangled
+# template arguments <256, SOFTCAP, SPLITK>
+_HD256 = re.compile(r"flash_attention_wgmma_kernelILi256ELb([01])ELb([01])E")
+
+
+def _hd256_ptxas(log) -> dict:
+    """``-Xptxas -v``'s registers and spill bytes (stores + loads) of
+    each hd-256 instantiation of the tensor-core attention kernel."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = _HD256.search(ln)
+            name = m and (f"flash_attention_wgmma_kernel<256, softcap="
+                          f"{m[1]}, split_k={m[2]}>")
+            if name:
+                out[name] = {}
+        elif name and "spill stores" in ln:
+            out[name]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln)[1])
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -726,6 +771,19 @@ def phase_build() -> None:
                              "cached": r["seconds"] == 0.0,
                              "ptxas": _ptxas_lines(r["log"])}
                       for name, r in built.items()}})
+    lib = build.load("flash_attention_wgmma")
+    smem = lib.flash_attention_wgmma_smem_bytes(256)
+    log = built["flash_attention_wgmma"]["log"]
+    hd256 = _hd256_ptxas(log)
+    emit({"phase": "build_hd256", "threads": 256, "smem_bytes": smem,
+          "ptxas": hd256 if log else "cached: built by an earlier run"})
+    check(not log or len(hd256) == 4 and all(
+        r.get("spill_bytes") == 0 and 0 < r.get("registers", 0) <= 255
+        for r in hd256.values()),
+        f"flash_attention_wgmma hd 256: ptxas reports {hd256} (4 "
+        f"instantiations, no spill expected)")
+    check(0 < smem <= 232448, f"flash_attention_wgmma hd 256: {smem} bytes "
+          f"of shared memory a block, over 227 KB")
 
 
 # ---------------------------------------------------------------------------
@@ -949,13 +1007,27 @@ def _planted_faults(kept) -> dict:
     frames = kept[cross][1].shape[2]
     last_tile = torch.arange(frames, dtype=torch.int32, device=q.device)
     last_tile[-64:] = -1
+    # hd 256 (the two-warpgroup tensor-core kernel): gemma2's global
+    # prefill with each row a position ahead, and its local decode with
+    # one 64-slot tile of the wrapped ring at -1 (every slot of it is in
+    # every row's window)
+    g_pre = next(n for n in kept if n.startswith("gemma2 global prefill"))
+    g_dec = "gemma2 local decode B=8 over a wrapped ring of 4096 slots"
+    g_ahead = torch.arange(1, kept[g_pre][0].shape[2] + 1, dtype=torch.int32,
+                           device=q.device)
+    g_ring = kept[g_dec][3]["k_pos"].clone()
+    g_ring[:, 64:128] = -1
     faults = {"window 257 for 256": ("window 256", {"window": 257}),
               "causal: each row sees the next key":
                   ("prefill S=1024", {"q_pos": ahead}),
               "decode: one 32-key tile of the ring dropped":
                   ("decode B=8 over 2048 ring slots", {"k_pos": ring}),
               "non-causal: the last key tile skipped":
-                  (cross, {"k_pos": last_tile})}
+                  (cross, {"k_pos": last_tile}),
+              "hd 256, gemma2 prefill: each row sees the next key":
+                  (g_pre, {"q_pos": g_ahead}),
+              "hd 256, gemma2 decode: one 64-slot tile of the ring dropped":
+                  (g_dec, {"k_pos": g_ring})}
     readings = {}
     for fault, (case, change) in faults.items():
         q, k, v, opts, ref = kept[case]
@@ -978,6 +1050,34 @@ def _planted_faults(kept) -> dict:
         check(reading > 1.0, f"planted fault '{fault}' passed the "
               f"flash_attention check ({reading} x its limit)")
     return readings
+
+
+def _cuda_core_kernels(q, k, v, opts):
+    """flash_attention.cu's kernels on a call, launched directly and
+    counted nowhere: the CUDA-core prefill kernel, or, for a call of at
+    most ops.DECODE_ROWS rows, the CUDA-core split-K partials and the
+    combine.  A bf16 call at hd 256 takes the tensor-core route; these
+    are its "before", run on the same inputs.  Returns a function of no
+    arguments that launches them and returns the output."""
+    from repro_torch.kernels.flash_attention import ops
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    rows, splits = Sq * (H // KV), ops.num_splits(Skv)
+    args = (q, k, v, opts.get("causal", True), opts.get("window"),
+            opts.get("softcap", 0.0), hd ** -0.5, opts.get("q_pos"),
+            opts.get("k_pos"))
+
+    def run():
+        call = ops._Call(*args)
+        if rows > ops.DECODE_ROWS:
+            call.run("flash_attention_launch")
+            return call.out
+        ws = [torch.empty((B, KV, rows, splits, n), dtype=torch.float32,
+                          device=q.device) for n in (hd, 2)]
+        call.run("flash_attention_decode_launch", ws[0].data_ptr(),
+                 ws[1].data_ptr(), splits, 3)     # partials, then combine
+        return call.out
+    return run
 
 
 def _sdpa(q, k, v, opts):
@@ -1132,6 +1232,10 @@ def phase_attn_kernel() -> dict:
         ("hd 256 (gemma2), window and softcap",
          (1, 8, 4, 700, 700, 256, bf16, False),
          {"window": 256, "softcap": 50.0}, False),
+        # scores of |s| ~ 1 over a cap of 2: both branches of the kernel's
+        # tanh (|s / cap| below 1 and above)
+        ("hd 256, softcap 2", (1, 8, 4, 700, 700, 256, bf16, False),
+         {"softcap": 2.0}, False),
         ("non-causal, Q and K tails", (2, 6, 3, 100, 77, 128, f32, False),
          {"causal": False}, False),
         # the tensor-core routes beyond the served shapes
@@ -1148,8 +1252,9 @@ def phase_attn_kernel() -> dict:
     ]
     # the zoo's configurations (phase serve_zoo) at the first zoo
     # prompt's length: gemma2-2b (8 heads over 4 of 256, softcap 50: the
-    # CUDA-core route), its local layers windowed at 4,096 and its global
-    # ones not; the windowed prefills of qwen2-7b-swa (group 7) and
+    # tensor-core route at hd 256, each case also through the CUDA-core
+    # kernels, its "before"), its local layers windowed at 4,096 and its
+    # global ones not; the windowed prefills of qwen2-7b-swa (group 7) and
     # mixtral-8x22b (48 heads over 8, group 6); qwen1.5-4b (MHA, 20
     # heads) at the text traffic's S = 1024; and each decode step over
     # its cache: a 4,096-slot ring wrapped past its window, gemma2's
@@ -1206,6 +1311,13 @@ def phase_attn_kernel() -> dict:
             again = flash_attention(q, k, v, **opts)
             check(torch.equal(out, again),
                   f"flash_attention {name}: a rerun is not bitwise equal")
+            before = None
+            if hd == 256 and dtype == bf16:
+                before = _cuda_core_kernels(q, k, v, opts)
+                before_excess = attn_excess(before(), ref)
+                check(before_excess <= 1.0, f"flash_attention {name}, the "
+                      f"CUDA-core kernels: |kernel - plain| is "
+                      f"{before_excess} x its limit")
         err_max = max(err_max, err)
         kept[name] = (q, k, v, opts, ref)
         rows.append({"case": name,
@@ -1214,11 +1326,19 @@ def phase_attn_kernel() -> dict:
                      "Skv": Skv, "hd": hd, "dtype": str(dtype)[6:],
                      "opts": sorted(opts), "max_abs_err": err,
                      "err_over_limit": excess})
+        if before is not None:
+            rows[-1]["cuda_cores_err_over_limit"] = before_excess
         if not on_path:
             continue
         calls = 100 if Sq * Skv <= 1 << 20 or Sq == 1 else 20
         timings[name] = {**_attn_times(q, k, v, opts, ref, calls),
                          "route": rows[-1]["route"]}
+        if before is not None:
+            with torch.no_grad():
+                before_ms = device_ms(before, calls=calls, replays=3)
+            timings[name]["cuda_cores_ms"] = before_ms
+            timings[name]["cuda_cores_over_route"] = \
+                before_ms / timings[name]["ms"]
     emit({"phase": "attn_kernel", "kernel": "flash_attention",
           "limit": f"{ATTN_ATOL} + rtol * |plain|, element by element",
           "rtol": {"float32": ATTN_RTOL[f32], "bfloat16": ATTN_RTOL[bf16]},
@@ -3193,12 +3313,28 @@ def phase_sweep(kernel_row, train_steps_per_s) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+# seconds of host idle on either side of the profiler's step from its
+# warm-up cycle to its active one: a device record that lies close to
+# that boundary can fall on the wrong side of the window
+PROFILE_PAD_S = 0.05
+# takes of a profiled round while the window holds fewer vfl_matmul
+# kernels than the wrapper launched in it (a window that lost device
+# records is taken again; the last take is returned all the same)
+PROFILE_TAKES = 3
+
+
+def _recorded_vfl_matmul(names) -> int:
+    """vfl_matmul kernels in a profiled window's device records."""
+    return sum(n for k, n in names.items() if "::vfl_matmul_" in k)
+
+
 def _profiled_round(pcfg) -> dict:
     """One round of ``pcfg``'s federation under torch.profiler after a
     warm round inside the profiler's warm-up cycle (a window opened
     cold can miss its first kernels): ``_profile_rows`` and the round's
     vfl_matmul launches (the count set to 0 just before, read just
-    after)."""
+    after).  The window must hold every vfl_matmul kernel the wrapper
+    counted; one that does not is taken again (``takes``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.core.protocol import (DeVertiFL, round_generator,
                                            train_generators)
@@ -3208,22 +3344,30 @@ def _profiled_round(pcfg) -> dict:
     params = fed.init_params(init_gen)
     opt_state = fed.opt.init(params)
     idx = fed.perms(round_generator(pcfg.seed, 0))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fed.run_round(params, opt_state, 0, idx)    # warm
-        torch.cuda.synchronize()
-        prof.step()
-        vfl_matmul_clients.launches = 0
-        t0 = time.perf_counter()
-        fed.run_round(params, opt_state, 0, idx)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = vfl_matmul_clients.launches
+    for take in range(1, PROFILE_TAKES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fed.run_round(params, opt_state, 0, idx)    # warm
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            vfl_matmul_clients.launches = 0
+            t0 = time.perf_counter()
+            fed.run_round(params, opt_state, 0, idx)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = vfl_matmul_clients.launches
+        names = _kernel_names(prof)
+        if _recorded_vfl_matmul(names) == launches:
+            break
     steps = pcfg.epochs * fed.n_batches
     return {"steps": steps, "vfl_matmul_launches": launches,
-            **_profile_rows(prof, wall_ms, steps),
-            "kernel_names": _kernel_names(prof)}
+            "recorded_vfl_matmul": _recorded_vfl_matmul(names),
+            "takes": take, **_profile_rows(prof, wall_ms, steps),
+            "kernel_names": names}
 
 
 def _kernel_names(prof) -> dict:
@@ -3396,7 +3540,8 @@ def _traced_is_untraced(lane) -> bool:
 
 
 def _step_reading(row) -> dict:
-    return {k: row[k] for k in ("kernels_per_step", "vfl_matmul_launches")}
+    return {k: row[k] for k in ("kernels_per_step", "vfl_matmul_launches",
+                                "recorded_vfl_matmul")}
 
 
 def _kernels_only(names) -> dict:
@@ -3510,6 +3655,7 @@ def phase_audit(kernel_row, profile_pcfg, profile) -> None:
           "step_after_audit": _step_reading(after),
           "kernels_a_round": [sum(_kernels_only(r["kernel_names"]).values())
                               for r in (before, after)],
+          "profile_takes": [before["takes"], after["takes"]],
           "profile_phase_step": _step_reading(profile),
           "vs_profile_phase": _name_diff(profile["kernel_names"],
                                          after["kernel_names"]),
@@ -4810,9 +4956,9 @@ def phase_serve_audio(attn_row) -> None:
 
 # ---------------------------------------------------------------------------
 # the zoo's configurations never served before, at full width: gemma2-2b
-# (hd 256: the CUDA-core route; alternating 4,096-key local and global
-# layers; softcaps), qwen1.5-4b (MHA with QKV bias) and qwen1.5-4b-swa
-# on its weights, qwen2-7b-swa, mixtral-8x22b cut in depth; the windowed
+# (hd 256; alternating 4,096-key local and global layers; softcaps),
+# qwen1.5-4b (MHA with QKV bias) and qwen1.5-4b-swa on its weights,
+# qwen2-7b-swa, mixtral-8x22b cut in depth; the windowed
 # ones serve prompts past their 4,096-key window, so every ring wraps in
 # the prefill's fill and again in decode
 ZOO = Serving(max_batch=8, cache_len=8192, n_new=32)
@@ -5060,6 +5206,7 @@ def _zoo_serve(cfg, model, params, info, prompts, run, per_layer,
               f"forward check: {dvf}")
     if routes is not None:
         _route_checks(name, line["routes"], routes)
+    profile = _serve_profiles(model, params, prompts, run, rows=None)
     emit({"phase": "serve_zoo", **info, **counts,
           "serve_peak_gb": peak / 1e9,
           "launches": {k: v for k, v in launches.items() if v},
@@ -5067,9 +5214,15 @@ def _zoo_serve(cfg, model, params, info, prompts, run, per_layer,
               windowed, run.cache_len),
           **_serve_metrics(prompts, t, run), "rerun_bitwise": None,
           "logits_kernel_vs_plain_rel_l2": logit["rel_l2"],
-          "profile": _serve_profiles(model, params, prompts, run,
-                                     rows=None),
-          "phase_s": time.perf_counter() - t_phase})
+          "profile": profile, "phase_s": time.perf_counter() - t_phase})
+    # a bf16 prefill's attention runs on the tensor cores at every head
+    # dim (gemma2's hd 256 included)
+    prefill = next(v for k, v in profile.items() if k.startswith("prefill"))
+    attn = [r["kernel"] for r in prefill["port_kernels"]
+            if "flash_attention" in r["kernel"]]
+    check(attn and all("flash_attention_wgmma_kernel" in k for k in attn),
+          f"{name}: the prefill's attention kernels are {attn}, expected "
+          f"the tensor-core kernel alone")
     return launches
 
 
@@ -6475,30 +6628,51 @@ DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT_S = 600
 
 
-def phase_dryrun(measured) -> None:
-    """The dry run's records (module doc, phase 26): the CLI over every
-    (arch, shape) at EXCHANGE_CLIENTS clients under zeropad_psum, its
-    records to DRYRUN_OUT.  ``measured``: the 8 x 256 step's host and
-    device ms with one client ("clients=1", from train_lm) and in each
-    exchange mode at EXCHANGE_CLIENTS clients."""
+def start_dryrun_cli() -> dict:
+    """Start the dry run's CLI (module doc, phase 26) in the background:
+    it builds every step on the meta device, in a process that sees no
+    card, so it runs beside the card's phases; ``phase_dryrun`` waits
+    for it and ``stop_dryrun_cli`` ends it if the script stops first."""
     import os
     import shutil
+    import tempfile
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--exchange", "zeropad_psum", "--clients", str(EXCHANGE_CLIENTS),
+         "--force", "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def stop_dryrun_cli(cli) -> None:
+    """End the dry run's CLI if it still runs, and close its log."""
+    if cli["proc"].poll() is None:
+        cli["proc"].kill()
+        cli["proc"].wait()
+    cli["log"].close()
+
+
+def phase_dryrun(measured, cli) -> None:
+    """The dry run's records (module doc, phase 26): the CLI over every
+    (arch, shape) at EXCHANGE_CLIENTS clients under zeropad_psum, its
+    records to DRYRUN_OUT (``cli``: ``start_dryrun_cli``'s process).
+    ``measured``: the 8 x 256 step's host and device ms with one client
+    ("clients=1", from train_lm) and in each exchange mode at
+    EXCHANGE_CLIENTS clients."""
     from repro_torch.configs import InputShape, get_config
     from repro_torch.launch import dryrun, dryrun_federated
     from repro_torch.roofline.analysis import HBM_BYTES
     t_phase = time.perf_counter()
-    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun",
-         "--exchange", "zeropad_psum", "--clients", str(EXCHANGE_CLIENTS),
-         "--force", "--out", str(DRYRUN_OUT)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, timeout=DRYRUN_TIMEOUT_S)
-    check(cli.returncode == 0,
-          f"dry run exited {cli.returncode}: {cli.stdout[-2000:]}")
-    cli_s = time.perf_counter() - t_phase
+    rc = cli["proc"].wait(timeout=DRYRUN_TIMEOUT_S)
+    cli_wait_s = time.perf_counter() - t_phase
+    cli["log"].seek(0)
+    out = cli["log"].read()
+    check(rc == 0, f"dry run exited {rc}: {out[-2000:]}")
+    cli_s = time.perf_counter() - cli["t0"]
     counts = collections.Counter()
     for arch in dryrun.ARCHS:
         for shape in dryrun.SHAPES:
@@ -6568,7 +6742,8 @@ def phase_dryrun(measured) -> None:
     emit({"phase": "dryrun", "clients": EXCHANGE_CLIENTS,
           "exchange": "zeropad_psum", "records": dict(counts),
           "hbm_bytes": HBM_BYTES, "train_8x256": bounds,
-          "federated": fed, "cli_s": cli_s,
+          "federated": fed, "cli_since_start_s": cli_s,
+          "cli_wait_s": cli_wait_s,
           "phase_s": time.perf_counter() - t_phase})
 
 
@@ -6576,6 +6751,16 @@ def main() -> None:
     info = phase_device()
     reuse_dataset_draws()
     phase_build()
+    cli = start_dryrun_cli()
+    try:
+        phases(info, cli)
+    finally:
+        stop_dryrun_cli(cli)
+
+
+def phases(info, cli) -> None:
+    """Phases 3 to 28 and the last two lines, the dry run's CLI (phase
+    26) running beside them from the start."""
     kernel_row = phase_kernel()
     attn_row = phase_attn_kernel()
     router_row = phase_moe_router()
@@ -6605,7 +6790,7 @@ def main() -> None:
     measured = {"clients=1": phase_train_lm(attn_row, router_row,
                                             rwkv_row, mamba_row)}
     measured.update(phase_exchange(attn_row))
-    phase_dryrun(measured)
+    phase_dryrun(measured, cli)
     phase_examples(kernel_row, attn_row)
     emit({"phase": "datasets", **_DRAWS})
     emit({"kernels": [kernel_row, attn_row, router_row, rwkv_row,

@@ -1,8 +1,10 @@
 // flash_attention for Hopper (sm_90a) on the CUDA cores: forward
 // attention with an online softmax, float32 sums, for what the tensor-core
-// kernels of flash_attention_wgmma.cu do not take (float32, and bf16 at
-// hd 256), and the combine kernel of every split-K decode.  The wrapper
-// (ops.py) picks the route by the call's shape and dtype.
+// kernels of flash_attention_wgmma.cu do not take (float32), and the
+// combine kernel of every split-K decode.  The wrapper (ops.py) picks the
+// route by the call's shape and dtype.  The kernels also take bf16 (every
+// head dim): no route sends it here, but chip_smoke.py times them on the
+// tensor-core route's inputs as the "before" of that route.
 //
 //   o[b, h, i, :] = sum_j softmax_j(s[i, j]) * v[b, h / group, j, :]
 //   s[i, j] = cap * tanh(scale * q[b, h, i, :] . k[b, h / group, j, :] / cap)
@@ -27,11 +29,10 @@
 // loads (kv head h / group is indexed, never copied), and a decode step
 // (Sq = 1) still fills a block with the group's heads.
 //
-// "cuda_cores", flash_attention_kernel: float32 prefill, and bf16 at hd 256
-// (whose 64 x 256 float32 accumulator a warpgroup would hold does not fit the
-// tensor-core kernel's registers).  One block per (batch, kv head, tile of
-// rows); the kv axis a loop inside it, the online-softmax state in registers.
-// Each warp owns RPW rows; lane j scores key j of a 32-key tile against them,
+// "cuda_cores", flash_attention_kernel: float32 prefill.  One block per
+// (batch, kv head, tile of rows); the kv axis a loop inside it, the
+// online-softmax state in registers.  Each warp owns RPW rows; lane j
+// scores key j of a 32-key tile against them,
 // then owns output dims lane, lane + 32, ... in the P.V sum.  A kv tile is
 // skipped when its positions prove every element of it masked for every row of
 // the block (causal future, outside the window, or unwritten ring slots at
@@ -41,10 +42,10 @@
 // from the card's peak: no served model is float32.
 //
 // "split_k", decode_partial_kernel + decode_combine_kernel: every call of at
-// most 64 rows (a decode step: 7 rows for qwen2-7b, 1 for deepseek) in float32,
-// or in bf16 at hd 256 (bf16 at hd 64 and 128, the served models, takes
-// flash_attention_wgmma.cu's split-K partials and this combine). Bound by the
-// bytes of the K/V cache (a few flops a byte); the work is to spread the slots
+// most 64 rows (a decode step: 7 rows for qwen2-7b, 1 for deepseek) in float32
+// (bf16, the served models, takes flash_attention_wgmma.cu's split-K partials
+// and this combine). Bound by the bytes of the K/V cache (a few flops a
+// byte); the work is to spread the slots
 // over the card and keep their bytes in flight.  The kv axis is cut into splits
 // of SPLIT slots (the count depends on Skv alone, never on the batch), one
 // block of 8 warps per (split, kv head, batch), one warp per 32-slot tile of

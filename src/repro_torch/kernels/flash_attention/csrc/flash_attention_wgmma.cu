@@ -1,23 +1,24 @@
 // flash_attention on the tensor cores of Hopper (sm_90a): bf16 attention
 // by wgmma, for prefill (the "wgmma" route: every bf16 call of more than 64
-// rows at hd 64 or 128) and for the partials of a split-K decode (the
-// "split_k_wgmma" route: at most 64 rows; flash_attention.cu's combine
-// kernel merges them).  ops.py picks the route.
+// rows) and for the partials of a split-K decode (the "split_k_wgmma"
+// route: at most 64 rows; flash_attention.cu's combine kernel merges
+// them), at head dims 64, 128 and 256.  ops.py picks the route.
 //
 //   o[b, h, i, :] = sum_j softmax_j(s[i, j]) * v[b, h / group, j, :]
 //   s[i, j] = cap * tanh(scale * q[b, h, i, :] . k[b, h / group, j, :] / cap)
 //
 // over the keys j that row i sees (the mask that flash_attention.cu and
-// ref.py state).  bfloat16 in and out, head dims 64 and 128.
+// ref.py state).  bfloat16 in and out.
 //
 // Replaces, with flash_attention.cu, the Pallas TPU kernel
 // flash_attention_p (src/repro/kernels/flash_attention/flash_attention.py:88).
 //
-// Work of one block, one warpgroup of 128 threads: batch b, kv head kvh and
-// a tile of 64 rows (wgmma's M), a row being one (query position i, head of
-// kvh's group) pair, position-major, so the group's GQA heads share every
-// K/V tile (kv head h / group is indexed, never copied); split-K, also one
-// split of 256 kv slots.  The kv axis is a loop over tiles of 64 keys:
+// Work of one block, one warpgroup of 128 threads (two at hd 256, below):
+// batch b, kv head kvh and a tile of 64 rows (wgmma's M), a row being one
+// (query position i, head of kvh's group) pair, position-major, so the
+// group's GQA heads share every K/V tile (kv head h / group is indexed,
+// never copied); split-K, also one split of 256 kv slots.  The kv axis is
+// a loop over tiles of 64 keys:
 //
 //   - K and V tiles come into a ring of 2 stages in shared memory by
 //     cp.async (16 bytes a copy, one tile ahead of the tile in use), written
@@ -33,9 +34,10 @@
 //     read once, with the set-up.
 //   - The block's Q rows are copied to shared memory once, the same way.
 //   - S = Q.K^T: wgmma m64n64k16, bf16 operands, float32 accumulator.
-//   - Scale, softcap (tanhf, a template case) and mask in registers, branch
-//     free; only a tile that straddles the causal diagonal, the window edge,
-//     the end of the keys or a ring slot at -1 is masked element by element.
+//   - Scale, softcap (a template case: tanh_f32, tanhf's accuracy) and mask
+//     in registers, branch free; only a tile that straddles the causal
+//     diagonal, the window edge, the end of the keys or a ring slot at -1 is
+//     masked element by element.
 //     A tile that no row of the block sees is skipped; without key
 //     positions the causal and window bounds also cut the loop's range.
 //   - Online softmax in float32: a row's 64 scores sit in the 4 lanes of a
@@ -44,9 +46,11 @@
 //     sum of the unrounded float32 P, until the end.
 //   - P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), both fed from
 //     registers (the accumulator layout of S is the A-fragment layout of P)
-//     to two wgmma m64n{hd}k16 against the same V tile, into a tile
-//     accumulator that O (float32) then adds on the CUDA cores.  A single bf16 rounding of P, as SDPA and FlashAttention do,
-//     errs by ~2^-9 of sqrt(sum p^2 v^2) on every output, which on outputs
+//     to two wgmma m64n{hd}k16 (n128 a warpgroup at hd 256) against the
+//     same V tile, into a tile accumulator that O (float32) then adds on
+//     the CUDA cores.  A single bf16 rounding of P, as SDPA and
+//     FlashAttention do, errs by ~2^-9 of sqrt(sum p^2 v^2) on every
+//     output, which on outputs
 //     near zero is far over the float32-accurate contract chip_smoke.py
 //     holds the kernel to; the split leaves ~2^-17 of it, below float32's
 //     own reordering error, for 1.5x the MMA work of one rounding.
@@ -59,6 +63,21 @@
 // This design does not overlap the softmax with the MMAs of another tile
 // (no producer warp, no setmaxnreg): each tile's MMAs and softmax run in
 // series, so a block is bound by their latency.
+//
+// Head dim 256 (gemma2-2b): a block of two warpgroups, 256 threads.  A
+// warpgroup's O over all 256 columns would take 128 float32 registers a
+// thread, and the per-tile accumulator pv as many again, past the 255 a
+// thread may hold; so warpgroup w owns O's columns [128 w, 128 w + 128)
+// and computes its pv from V's subtiles 2 w and 2 w + 1 alone, which is
+// the hd-128 budget a thread (64 O, 64 pv, 32 S, the P fragments).  The
+// two share the Q tile and the K/V ring in shared memory (Q 32 KB, K and V
+// 2 stages x 32 KB each: ~163 KB, one block an SM) and all 256 threads
+// issue the copies.  Each warpgroup computes the whole S = Q.K^T over hd
+// 256 and runs the same scale, softcap, mask and online softmax on it, in
+// the same order, so the two agree on every m, l and P bit for bit with
+// nothing exchanged through shared memory.  That costs 8 * hd MMA flops a
+// visible pair against 6 * hd, less than a round trip of S through shared
+// memory and a barrier a tile.
 //
 // Determinism: each row's arithmetic is done by one quad in a fixed order,
 // with no atomics, and does not depend on the other rows of its block
@@ -78,7 +97,7 @@ namespace {
 constexpr int BN = 64;           // keys a tile
 constexpr int SUB = 64;          // hd columns of one 128-byte swizzled subtile
 constexpr int BM = 64;           // rows a block: one warpgroup's wgmma M
-constexpr int THREADS = 128;     // one warpgroup
+constexpr int WG_THREADS = 128;  // a warpgroup
 constexpr int STAGES = 2;        // K/V ring
 constexpr int SPLIT = 256;       // split-K: kv slots a split (ops.SPLIT_SLOTS)
 constexpr unsigned FULL = 0xffffffffu;
@@ -122,6 +141,14 @@ struct Smem {
   static constexpr int RED_OFF = SPOS_OFF + SPLIT * 4;   // [2][8 warps]
   static constexpr int BYTES = RED_OFF + 16 * 4 + 1024;  // + alignment
 };
+// a block's shared memory at hd 256, the largest: under the 227 KB
+// (232,448 bytes) a block may have
+static_assert(Smem<256>::BYTES <= 232448, "hd 256 overflows shared memory");
+
+// warpgroups a block: two at hd 256, each owning half of O's columns
+__host__ __device__ constexpr int warpgroups(int hd) {
+  return hd == 256 ? 2 : 1;
+}
 
 // byte offset of 16-byte chunk c of row r in a [NSUB][ROWS][128 B] array
 // with the 128-byte swizzle (chunk c % 8 of a row stored at (c ^ r) % 8)
@@ -256,15 +283,50 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 1 / x (approximate, relative error ~2^-23; 0 for inf)
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) within ~2 ulp, tanhf's own accuracy, branch free and in fewer
+// instructions (tanhf, with the IEEE division before it, cost more than
+// the rest of the softmax at hd 256): |y| < 1 an odd polynomial
+// y + y^3 P(y^2), a least-squares minimax fit of degree 8 in y^2 (within
+// 1 ulp); otherwise 1 - 2 / (e^(2|y|) + 1) by one ex2 and one rcp (1.5
+// ulp, and each approximation's ~2^-22; 1 once e^(2|y|) overflows), given
+// y's sign.  tests/test_torch_flash_attention.py reads these coefficients
+// and holds the formula to those ulps.
+__device__ __forceinline__ float tanh_f32(float y) {
+  const float u = y * y;
+  float q = -4.1350485844304785e-05f;
+  q = fmaf(q, u, 3.0668990802951157e-04f);
+  q = fmaf(q, u, -1.186260487884283e-03f);
+  q = fmaf(q, u, 3.4245161805301905e-03f);
+  q = fmaf(q, u, -8.796371519565582e-03f);
+  q = fmaf(q, u, 2.1853024140000343e-02f);
+  q = fmaf(q, u, -5.396593362092972e-02f);
+  q = fmaf(q, u, 1.3333317637443542e-01f);
+  q = fmaf(q, u, -3.333333432674408e-01f);
+  const float small = fmaf(y * u, q, y);
+  const float a = fabsf(y);
+  const float big = copysignf(fmaf(-2.f, rcp(ex2(a * (2.f * LOG2E)) + 1.f),
+                                   1.f), y);
+  return a < 1.f ? small : big;
+}
+
 // Scale, softcap and (where MASK) mask a tile's scores, then the online
 // softmax of the thread's two rows: element e of a chunk of 8 columns c8
 // sits at row g + 8 (e / 2) of the warp's 16, column 8 c8 + 2 (lane % 4) +
 // e % 2.  Branch-free: a row that has seen no key keeps m = -inf and takes
 // 0 as its reference, so that each of its p and its alpha are 2^-inf = 0.
+// cap_scale = scale / softcap: a softcapped score is
+// softcap * tanh(s * cap_scale).
 template <bool SOFTCAP, bool MASK, int NO>
 __device__ __forceinline__ void online_softmax(
     float (&s)[32], float (&o)[NO], float (&m)[2], float (&l)[2],
-    const Params& p, const int* kp_t, const int (&qp)[2],
+    const Params& p, float cap_scale, const int* kp_t, const int (&qp)[2],
     const bool (&live_row)[2], int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -274,8 +336,11 @@ __device__ __forceinline__ void online_softmax(
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
         const int e = c8 * 4 + h * 2 + e2;
-        float x = s[e] * p.scale;
-        if constexpr (SOFTCAP) x = p.softcap * tanhf(x / p.softcap);
+        float x;
+        if constexpr (SOFTCAP)
+          x = p.softcap * tanh_f32(s[e] * cap_scale);
+        else
+          x = s[e] * p.scale;
         if constexpr (MASK) {
           const int kp = kp_t[c8 * 8 + 2 * (lane & 3) + e2];
           const bool ok = live_row[h] & (kp >= 0) &
@@ -313,17 +378,21 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-// HD: head dim (64, 128); SOFTCAP: p.softcap != 0; SPLITK: the block
-// takes one split of SPLIT kv
-// slots (blockIdx.x = row tile * splits + split) and writes its rows'
-// partial (m, l, o) to the workspace, which flash_attention.cu's combine
-// kernel merges; otherwise it walks every slot and writes o / l.
+// HD: head dim (64, 128, 256); SOFTCAP: p.softcap != 0; SPLITK: the
+// block takes one split of SPLIT kv slots (blockIdx.x = row tile * splits
+// + split) and writes its rows' partial (m, l, o) to the workspace, which
+// flash_attention.cu's combine kernel merges; otherwise it walks every
+// slot and writes o / l.
 template <int HD, bool SOFTCAP, bool SPLITK>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(HD == 256 ? 256 : 128)
 flash_attention_wgmma_kernel(const Params p) {
   using L = Smem<HD>;
+  constexpr int WG = warpgroups(HD);
+  constexpr int THREADS = WG_THREADS * WG;
+  static_assert(THREADS == (HD == 256 ? 256 : 128), "launch bounds");
   constexpr int CPR = HD / 8;     // 16-byte chunks a row
-  constexpr int NO = HD / 2;      // O accumulators a thread (m64n{HD})
+  constexpr int NC = HD / WG;     // O's columns a warpgroup owns
+  constexpr int NO = NC / 2;      // O accumulators a thread (m64n{NC})
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -334,6 +403,9 @@ flash_attention_wgmma_kernel(const Params p) {
   int* red_s = reinterpret_cast<int*>(smem_raw + (base - raw) + L::RED_OFF);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's warpgroup, and its warp within it
+  const int wg = WG == 1 ? 0 : tid / WG_THREADS;
+  const int wwarp = WG == 1 ? warp : warp & 3;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int group = p.group, rows = p.Sq * group;
   const int split = SPLITK ? blockIdx.x % p.splits : 0;
@@ -429,8 +501,9 @@ flash_attention_wgmma_kernel(const Params p) {
     qmax = max(qmax, red_s[THREADS / 32 + w]);
   }
 
-  // this thread's two rows: g and g + 8 of its warp's 16
-  const int lrow = warp * 16 + (lane >> 2);
+  // this thread's two rows: g and g + 8 of its warp's 16 (in either
+  // warpgroup: both hold the block's 64 rows)
+  const int lrow = wwarp * 16 + (lane >> 2);
   int qp[2];
   bool live_row[2];
 #pragma unroll
@@ -458,6 +531,7 @@ flash_attention_wgmma_kernel(const Params p) {
   for (int x = 0; x < NO; ++x) o[x] = pv[x] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const uint32_t qbase = base + L::Q_OFF;
+  const float cap_scale = SOFTCAP ? p.scale / p.softcap : 0.f;
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {   // the first group holds Q too
@@ -505,9 +579,11 @@ flash_attention_wgmma_kernel(const Params p) {
 
     // only a tile that straddles a mask edge is masked element by element
     if (full)
-      online_softmax<SOFTCAP, false>(s, o, m, l, p, kp_t, qp, live_row, lane);
+      online_softmax<SOFTCAP, false>(s, o, m, l, p, cap_scale, kp_t, qp,
+                                     live_row, lane);
     else
-      online_softmax<SOFTCAP, true>(s, o, m, l, p, kp_t, qp, live_row, lane);
+      online_softmax<SOFTCAP, true>(s, o, m, l, p, cap_scale, kp_t, qp,
+                                    live_row, lane);
 
     // P = P_hi + P_lo in bf16, as the A fragments of 4 k-steps of 16 keys
     uint32_t ph[4][4], pl[4][4];
@@ -528,14 +604,15 @@ flash_attention_wgmma_kernel(const Params p) {
     // accumulation, fed every tile of a long row into O, drifts (qwen2-7b's
     // 32,768-row prefill read up to 3.1x float32's own floor); a tile's 8
     // products summed there do not.  V MN-major: 64-column subtiles 8 KB
-    // apart
-    const uint32_t vst = base + L::V_OFF + st * L::KV_TILE;
+    // apart; warpgroup wg reads those of its NC columns
+    const uint32_t vst =
+        base + L::V_OFF + st * L::KV_TILE + wg * (NC / SUB) * L::KV_SUB;
     fence_regs(pv);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = smem_desc(vst + kk * 16 * 128, L::KV_SUB, 1024);
-      if constexpr (HD == 64) {
+      if constexpr (NC == 64) {
         mma_rs_n64(pv, ph[kk], dv, kk > 0);
         mma_rs_n64(pv, pl[kk], dv, 1);
       } else {
@@ -552,7 +629,8 @@ flash_attention_wgmma_kernel(const Params p) {
   cp_async_wait<0>();
 
   // the denominator summed over the row's quad; then o / l (0 where
-  // l == 0), or, split-K, the partial (m, l, o)
+  // l == 0), or, split-K, the partial (m, l, o): warpgroup wg's NC
+  // columns, and (m, l) once, from warpgroup 0
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float lsum = l[h] + __shfl_xor_sync(FULL, l[h], 1);
@@ -562,20 +640,20 @@ flash_attention_wgmma_kernel(const Params p) {
     if constexpr (SPLITK) {
       const long long rec =
           (((long long)b * gridDim.y + kvh) * rows + row) * p.splits + split;
-      float* orow = p.ws_o + rec * HD;
+      float* orow = p.ws_o + rec * HD + wg * NC;
 #pragma unroll
-      for (int c8 = 0; c8 < HD / 8; ++c8)
+      for (int c8 = 0; c8 < NC / 8; ++c8)
         *reinterpret_cast<float2*>(orow + c8 * 8 + 2 * (lane & 3)) =
             make_float2(o[c8 * 4 + h * 2], o[c8 * 4 + h * 2 + 1]);
-      if ((lane & 3) == 0)
+      if ((lane & 3) == 0 && wg == 0)
         *reinterpret_cast<float2*>(p.ws_ml + rec * 2) =
             make_float2(m[h], lsum);
     } else {
       const int i = row / group, hh = kvh * group + row % group;
       __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.osb +
-                            hh * p.osh + (long long)i * p.oss;
+                            hh * p.osh + (long long)i * p.oss + wg * NC;
 #pragma unroll
-      for (int c8 = 0; c8 < HD / 8; ++c8) {
+      for (int c8 = 0; c8 < NC / 8; ++c8) {
         const float a0 = lsum == 0.f ? 0.f : o[c8 * 4 + h * 2] / lsum;
         const float a1 = lsum == 0.f ? 0.f : o[c8 * 4 + h * 2 + 1] / lsum;
         *reinterpret_cast<__nv_bfloat162*>(orow + c8 * 8 + 2 * (lane & 3)) =
@@ -596,7 +674,8 @@ cudaError_t launch(const Params& p, int B, int KV, cudaStream_t stream) {
   if (attr != cudaSuccess) return attr;
   const long long rows = (long long)p.Sq * p.group;
   const long long tiles = (rows + BM - 1) / BM * p.splits;
-  kernel<<<dim3((unsigned)tiles, KV, B), THREADS, smem, stream>>>(p);
+  kernel<<<dim3((unsigned)tiles, KV, B), WG_THREADS * warpgroups(HD), smem,
+           stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -613,7 +692,7 @@ int launch_any(const void* q, const void* k, const void* v, void* o,
                int causal, int window, float softcap, float scale,
                float* ws_o, float* ws_ml, int splits, void* stream) {
   if (!is_bf16 || B <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv < 0 ||
-      B > 65535 || KV > 65535 || (hd != 64 && hd != 128) ||
+      B > 65535 || KV > 65535 || (hd != 64 && hd != 128 && hd != 256) ||
       (SPLITK && ((long long)Sq * (H / KV) > 64 ||
                   splits != (Skv > SPLIT ? (Skv + SPLIT - 1) / SPLIT : 1))))
     return (int)cudaErrorInvalidValue;
@@ -631,14 +710,15 @@ int launch_any(const void* q, const void* k, const void* v, void* o,
   p.splits = SPLITK ? splits : 1;
   p.ws_o = ws_o; p.ws_ml = ws_ml;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(hd == 64 ? launch_hd<64, SPLITK>(p, B, KV, s)
-                        : launch_hd<128, SPLITK>(p, B, KV, s));
+  return (int)(hd == 64    ? launch_hd<64, SPLITK>(p, B, KV, s)
+               : hd == 128 ? launch_hd<128, SPLITK>(p, B, KV, s)
+                           : launch_hd<256, SPLITK>(p, B, KV, s));
 }
 
 }  // namespace
 
 // The arguments of flash_attention_launch (flash_attention.cu); is_bf16
-// must be 1 and hd 64 or 128.  Returns the CUDA error of the launch.
+// must be 1 and hd 64, 128 or 256.  Returns the CUDA error of the launch.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* o, const int* q_pos,
     const int* k_pos, int is_bf16, int B, int H, int KV, int Sq, int Skv,
@@ -663,3 +743,11 @@ extern "C" int flash_attention_wgmma_partials_launch(
                           ws_o, ws_ml, splits, stream);
 }
 
+// Shared memory a block of head dim hd takes (Smem<hd>::BYTES), 0 for a
+// head dim the kernel does not take.
+extern "C" int flash_attention_wgmma_smem_bytes(int hd) {
+  return hd == 64    ? Smem<64>::BYTES
+         : hd == 128 ? Smem<128>::BYTES
+         : hd == 256 ? Smem<256>::BYTES
+                     : 0;
+}

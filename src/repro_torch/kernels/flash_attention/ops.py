@@ -19,15 +19,14 @@ call's static shape and dtype, never by catching a failure:
   ``SPLIT_SLOTS`` slots, one block a (split, kv head, batch) writing
   float32 partials to a workspace allocated here, then a combine kernel
   (``csrc/flash_attention.cu``).  The partials run on the tensor cores
-  for bfloat16 at head dims 64 and 128 (``split_k_wgmma``,
-  ``csrc/flash_attention_wgmma.cu``), else on the CUDA cores.
-- ``"wgmma"``, the other bfloat16 calls at head dims 64 and 128: the
-  tensor cores, with the probabilities split into two bf16 parts so
-  that the result stays float32-accurate
-  (``csrc/flash_attention_wgmma.cu``).
-- ``"cuda_cores"``, the rest (float32 prefill; bfloat16 at head dim 256,
-  whose float32 accumulator does not fit the ``wgmma`` route's
-  registers): ``csrc/flash_attention.cu``.
+  for bfloat16 (``split_k_wgmma``, ``csrc/flash_attention_wgmma.cu``),
+  on the CUDA cores for float32 (``split_k``).
+- ``"wgmma"``, the other bfloat16 calls: the tensor cores, with the
+  probabilities split into two bf16 parts so that the result stays
+  float32-accurate (``csrc/flash_attention_wgmma.cu``; at head dim 256
+  a block of two warpgroups, each owning half of the output's
+  columns).
+- ``"cuda_cores"``, the other float32 calls: ``csrc/flash_attention.cu``.
 
 Each call counts one launch, whichever route (a split-K call runs two
 kernels).  The kernels read q, k and v through their strides (unit
@@ -91,7 +90,8 @@ def _check(q, k, v, q_pos, k_pos):
 # splits are SPLIT_SLOTS slots (the kernels' SPLIT and MAX_ROWS)
 DECODE_ROWS = 64
 SPLIT_SLOTS = 256
-WGMMA_HEAD_DIMS = (64, 128)
+# the head dims the tensor-core kernels take (flash_attention_wgmma.cu)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 
 
 def route(Sq, group, hd, dtype) -> str:
@@ -185,8 +185,8 @@ class _Call:
 
 def _split_k(q, k, v, causal, window, softcap, scale, q_pos, k_pos,
              edit=None):
-    """A split-K route: each split's partials (tensor cores for bf16 at
-    head dims 64 and 128, else the CUDA cores) into a float32 workspace,
+    """A split-K route: each split's partials (tensor cores for bf16,
+    the CUDA cores for float32) into a float32 workspace,
     then the combine.  ``edit(ws_o, ws_ml)``, where given, runs between
     the two (a check's planted fault); ws_o is [B, KV, rows, splits, hd]
     and ws_ml [B, KV, rows, splits, 2] (max, denominator)."""

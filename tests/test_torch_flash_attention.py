@@ -9,6 +9,9 @@ passes.  The kernel itself is held to the plain version on the card (the
 ``cuda`` test below, and chip_smoke.py).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -297,6 +300,82 @@ def test_tensor_core_emulation_non_causal(Sq, Skv):
     assert chip_smoke().attn_excess(out, plain) <= 1.0
 
 
+@pytest.mark.parametrize("window", [None, 256], ids=["global", "local"])
+def test_tensor_core_emulation_at_gemma2_shapes(window):
+    """The wgmma route's numerics at head dim 256, gemma2-2b's (8 heads
+    over 4, softcap 50; S = 700, so 1,400 rows end in a 56-row tile),
+    global and windowed: within chip_smoke.py's element-by-element limit
+    against the float32 plain version.  The two-warpgroup block splits
+    O's columns, not the arithmetic of a column, so this is the check the
+    card holds the hd-256 kernel to."""
+    q, k, v = _bf16_qkv(29, 1, 8, 4, 700, 256)
+    kw = {"softcap": 50.0, "window": window}
+    plain = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    out = tensor_core_emulation(q, k, v, **kw)
+    assert chip_smoke().attn_excess(out, plain) <= 1.0
+
+
+@pytest.mark.parametrize("kw", [{"softcap": 50.0},
+                                {"softcap": 50.0, "window": 300}],
+                         ids=["global", "local"])
+def test_split_k_at_head_dim_256_over_a_wrapped_ring(kw):
+    """The split-K routes' arithmetic at gemma2-2b's head dim 256: a
+    decode step of 4 rows (B = 4, group 2) over a 600-slot ring that has
+    wrapped, its partials in ops.num_splits(600) = 3 splits merged by
+    combine_ref, equals the plain version (float32 in another order)."""
+    q, k, v, pos = _decode_inputs(31, 4, 8, 4, 600, 256, 700, 1500)
+    assert bool((pos["k_pos"] >= 0).all()), "expected a wrapped ring"
+    n = ops.num_splits(k.shape[2])
+    m, l, o = decode_partials_ref(q, k, v, n_splits=n, **pos, **kw)
+    kernel_close(combine_ref(m, l, o),
+                 flash_attention_ref(q, k, v, **pos, **kw))
+
+
+_WGMMA_CU = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+             "kernels" / "flash_attention" / "csrc" /
+             "flash_attention_wgmma.cu")
+
+
+def _kernel_tanh(y):
+    """flash_attention_wgmma.cu's ``tanh_f32`` step by step in float32
+    (each fmaf exact in float64, then rounded once), its polynomial's
+    coefficients read from the source; ex2 and rcp exact here (on the
+    card each adds at most ~2^-22 relative)."""
+    body = _WGMMA_CU.read_text().split("float tanh_f32(float y) {")[1]
+    coef = [np.float32(c) for c in re.findall(
+        r"([-+]?\d\.\d+e[-+]\d+)f", body.split("\n}\n")[0])]
+    assert len(coef) == 9, coef
+    f32, f64 = np.float32, np.float64
+    u = (y * y).astype(f32)
+    q = np.full_like(y, coef[0])
+    for c in coef[1:]:
+        q = (q.astype(f64) * u + c).astype(f32)
+    small = ((y * u).astype(f32).astype(f64) * q + y).astype(f32)
+    a = np.abs(y)
+    with np.errstate(over="ignore"):       # e^2|y| -> inf: r = 0
+        e = np.exp2((a * f32(2 * np.log2(np.e))).astype(f32).astype(f64))
+        r = (1.0 / (e.astype(f32) + f32(1)).astype(f64)).astype(f32)
+    big = np.copysign((1.0 - 2.0 * r.astype(f64)).astype(f32), y)
+    return np.where(a < 1, small, big)
+
+
+@pytest.mark.parametrize("lo,hi,ulps", [(0.0, 1.0, 1.0), (1.0, 12.0, 1.5),
+                                        (12.0, 100.0, 0.5)],
+                         ids=["polynomial", "exponential", "saturated"])
+def test_kernel_tanh_is_float32_accurate(lo, hi, ulps):
+    """The tensor-core kernel's softcap takes tanh from ``tanh_f32``,
+    not tanhf: its odd polynomial below |y| = 1 and 1 - 2 / (e^2|y| + 1)
+    above, emulated in float32, stay within ``ulps`` float32 ulps of
+    tanh on both signs (tanhf's own is 2), and tanh(0) is 0."""
+    y = np.linspace(lo, hi, 200_001).astype(np.float32)[1:]
+    y = np.concatenate([y, -y])
+    want = np.tanh(y.astype(np.float64))
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    err = np.abs(_kernel_tanh(y) - want) / ulp
+    assert float(err.max()) <= ulps, float(err.max())
+    assert _kernel_tanh(np.zeros(1, np.float32))[0] == 0.0
+
+
 def _decode_inputs(seed, B, H, KV, size, hd, lo, hi):
     """A decode step over a ring of ``size`` slots after positions drawn
     in [lo, hi): partly written (slots at -1) or wrapped."""
@@ -372,7 +451,8 @@ def test_combine_of_nothing_is_zero():
     (1, 4, 128, torch.bfloat16, "split_k_wgmma"),    # jamba decode
     (9, 7, 64, torch.bfloat16, "split_k_wgmma"),     # 63 rows
     (1, 7, 128, torch.float32, "split_k"),
-    (1, 2, 256, torch.bfloat16, "split_k"),          # gemma2 decode
+    (1, 2, 256, torch.bfloat16, "split_k_wgmma"),    # gemma2 decode
+    (1, 2, 256, torch.float32, "split_k"),
     (64, 1, 128, torch.bfloat16, "split_k_wgmma"),   # 64 rows
     (65, 1, 128, torch.bfloat16, "wgmma"),
     (10, 7, 64, torch.bfloat16, "wgmma"),            # 70 rows
@@ -386,7 +466,8 @@ def test_combine_of_nothing_is_zero():
     (1024, 1, 64, torch.bfloat16, "wgmma"),          # seamless encoder
     (3392, 7, 128, torch.bfloat16, "wgmma"),         # llava prefill
     (1024, 7, 128, torch.float32, "cuda_cores"),
-    (700, 2, 256, torch.bfloat16, "cuda_cores"),     # gemma2 prefill
+    (700, 2, 256, torch.bfloat16, "wgmma"),          # gemma2 prefill
+    (700, 2, 256, torch.float32, "cuda_cores"),
 ])
 def test_route_by_shape_and_dtype(Sq, group, hd, dtype, want):
     assert ops.route(Sq, group, hd, dtype) == want

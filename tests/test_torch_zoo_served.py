@@ -286,7 +286,7 @@ def test_num_splits_at_the_long_caches():
     assert ops.num_splits(4096) == 16
     assert ops.route(1, 7, 128, torch.bfloat16) == "split_k_wgmma"
     assert ops.route(32_768, 7, 128, torch.bfloat16) == "wgmma"
-    assert ops.route(5731, 2, 256, torch.bfloat16) == "cuda_cores"
+    assert ops.route(5731, 2, 256, torch.bfloat16) == "wgmma"
 
 
 def _ring_at(B, size, last):
