@@ -32,6 +32,13 @@ calls, with ``mamba_scan_fused``'s signature ``(dt, x, B, C, A, h0, *,
 h_out)`` (None: ``mamba_scan_fused``).  ``chip_smoke.py`` passes the plain
 versions, and planted faults, to read the kernels' effect on the logits
 and the routes.
+
+Spans (``repro_torch.obs.trace``, into the tracer the serving engine
+armed): ``input_block`` (host and device) around the input block, with
+the clients, the exchange mode and the bytes the clients transmit
+(``exchange_bytes``) as arguments, and ``lm_head`` around the final norm
+and the output head, in ``prefill`` and ``decode_step``; the layers'
+own in ``transformer`` and ``moe``.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.obs import trace as _trace
 
 
 def padded_vocab(v: int) -> int:
@@ -135,8 +143,24 @@ class Model:
             enc = self._encode(params, batch["prefix_emb"])
         elif cfg.modality != "text" and "prefix_emb" in batch:
             prefix = batch["prefix_emb"]
-        return T.embed_input(params, batch["tokens"], cfg,
-                             prefix_emb=prefix, clients=self.clients), enc
+        return self._embed(params, batch["tokens"], prefix), enc
+
+    def _embed(self, params, tokens, prefix=None):
+        """The input block (``transformer.embed_input``) under the
+        ``input_block`` span."""
+        rows = 0 if prefix is None else prefix.shape[1]
+        with _trace.current().span(
+                "input_block", cat="model", device=True,
+                clients=self.clients, exchange=self.cfg.vfl.exchange,
+                bytes=self.exchange_bytes(tokens.shape, rows)):
+            return T.embed_input(params, tokens, self.cfg,
+                                 prefix_emb=prefix, clients=self.clients)
+
+    def _head(self, params, h):
+        """Final norm and output head: float32 logits."""
+        with _trace.current().span("lm_head", cat="model"):
+            h = L.apply_norm(params["final_norm"], h, self.cfg.norm_type)
+            return T.logits_from_hidden(params, h, self.cfg)
 
     def forward_logits(self, params, batch):
         """batch: {'tokens': [B,S_text]} (+ 'prefix_emb': [B,P,D]).
@@ -188,8 +212,7 @@ class Model:
         h, cache = T.stack_prefill(params["stack"], h, positions, cfg,
                                    self.kinds, B, cache_len, self.dtype,
                                    self.hooks, enc)
-        h = L.apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm_type)
-        logits = T.logits_from_hidden(params, h, cfg)
+        logits = self._head(params, h[:, -1:, :])
         state = {"cache": cache,
                  "position": torch.full((B,), S_total, dtype=torch.int32,
                                         device=h.device)}
@@ -227,13 +250,12 @@ class Model:
         """tokens: [B,1] -> (logits [B,1,V], new_state).  The caches in
         ``state`` are written in place; the new state shares them."""
         cfg = self.cfg
-        h = T.embed_input(params, tokens, cfg, clients=self.clients)
+        h = self._embed(params, tokens)
         pos = state["position"]
         h, new_cache = T.stack_decode(params["stack"], h, pos, cfg,
                                       self.kinds, state["cache"],
                                       self.hooks, state.get("enc"))
-        h = L.apply_norm(params["final_norm"], h, cfg.norm_type)
-        logits = T.logits_from_hidden(params, h, cfg)
+        logits = self._head(params, h)
         new_state = dict(state)
         new_state["cache"] = new_cache
         new_state["position"] = pos + 1

@@ -24,6 +24,12 @@ sort by expert, the position of a pair in its expert's run (a cummax of
 run starts), and that a slot's routing competes with every other token
 of its group, padding slots of a decode batch included.
 
+Device spans (``repro_torch.obs.trace``, into the tracer the serving
+engine armed): ``moe.route`` (router logits and ``moe_router``),
+``moe.dispatch`` (sort, run positions, scatter into [G, E, C, D]),
+``moe.experts`` (the three products), ``moe.combine`` (inverse-sort
+gather and weighted sum) and ``moe.shared`` (the shared experts).
+
 Not ported: ``_ep_axis`` and ``_moe_expert_compute_ep``, expert
 parallelism over a device mesh; with one card there is no mesh.
 """
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.moe_router import moe_router
 from repro_torch.models import layers as L
+from repro_torch.obs import trace as _trace
 
 
 def moe_init(generator, cfg, dtype):
@@ -118,10 +125,12 @@ def moe_apply(params, x, cfg, route=None, with_aux=False):
     k = cfg.num_experts_per_tok
     T = B * S
     xf = x.reshape(T, D)
+    tr = _trace.current()
 
-    logits = xf.float() @ params["router"]["kernel"]            # [T, E]
-    top_w, top_idx, _ = (route or moe_router)(logits, k)
-    top_idx = top_idx.long()
+    with tr.span("moe.route", cat="model", device=True):
+        logits = xf.float() @ params["router"]["kernel"]        # [T, E]
+        top_w, top_idx, _ = (route or moe_router)(logits, k)
+        top_idx = top_idx.long()
     aux = _aux_loss(logits, top_idx, cfg) if with_aux else None
 
     G = _pick_groups(T, B)
@@ -129,27 +138,32 @@ def moe_apply(params, x, cfg, route=None, with_aux=False):
     C = max(1, int(cfg.expert_capacity_factor * k * Tg / E))
     C = min(C, Tg * k)
 
-    xg = xf.reshape(G, Tg, D)
-    wg = top_w.reshape(G, Tg, k).to(x.dtype)
-    buf, dest, _, _, order = _dispatch(xg, top_idx.reshape(G, Tg, k), E, C)
+    with tr.span("moe.dispatch", cat="model", device=True):
+        xg = xf.reshape(G, Tg, D)
+        buf, dest, _, _, order = _dispatch(xg, top_idx.reshape(G, Tg, k),
+                                           E, C)
     ex = params["experts"]
-    h = torch.einsum("gecd,edf->gecf", buf, ex["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", buf, ex["w_up"])
-    out = torch.einsum("gecf,efd->gecd", F.silu(h) * u, ex["w_down"])
-    out_flat = torch.cat([out.reshape(G, E * C, D),
-                          out.new_zeros((G, 1, D))], dim=1)
+    with tr.span("moe.experts", cat="model", device=True):
+        h = torch.einsum("gecd,edf->gecf", buf, ex["w_gate"])
+        u = torch.einsum("gecd,edf->gecf", buf, ex["w_up"])
+        out = torch.einsum("gecf,efd->gecd", F.silu(h) * u, ex["w_down"])
     # combine: each (token, pick) pair's slot output, back in (token,
     # pick) order through the inverse of the sort (a dropped pair reads
     # the zero row), weighted and summed over the picks in pick order
     # in the model dtype, with no atomics
-    dest_tk = torch.empty_like(dest).scatter_(1, order, dest)
-    g_idx = torch.arange(G, device=x.device)[:, None]
-    slot = out_flat[g_idx, dest_tk].reshape(G, Tg, k, D)
-    y = slot[:, :, 0] * wg[:, :, 0, None]
-    for j in range(1, k):
-        y = y + slot[:, :, j] * wg[:, :, j, None]
-    y = y.reshape(B, S, D)
+    with tr.span("moe.combine", cat="model", device=True):
+        wg = top_w.reshape(G, Tg, k).to(x.dtype)
+        out_flat = torch.cat([out.reshape(G, E * C, D),
+                              out.new_zeros((G, 1, D))], dim=1)
+        dest_tk = torch.empty_like(dest).scatter_(1, order, dest)
+        g_idx = torch.arange(G, device=x.device)[:, None]
+        slot = out_flat[g_idx, dest_tk].reshape(G, Tg, k, D)
+        y = slot[:, :, 0] * wg[:, :, 0, None]
+        for j in range(1, k):
+            y = y + slot[:, :, j] * wg[:, :, j, None]
+        y = y.reshape(B, S, D)
 
     if "shared" in params:
-        y = y + L.mlp_apply(params["shared"], x, "swiglu")
+        with tr.span("moe.shared", cat="model", device=True):
+            y = y + L.mlp_apply(params["shared"], x, "swiglu")
     return y, aux

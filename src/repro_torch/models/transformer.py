@@ -47,6 +47,11 @@ a full-size zero-padded gradient per group.
 
 Decode writes every layer's cache in place: the attention ring, the
 RWKV state and token-shift rows, the Mamba state and conv history.
+
+Spans (``repro_torch.obs.trace``, into the tracer the serving engine
+armed): a prefill or decode block's mixer under ``mixer.<attn|mamba|
+rwkv>``, every FFN under ``ffn.<mlp|moe|rwkv_cm>`` (the MoE one a
+device span too, holding ``moe_apply``'s own).
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.obs import trace as _trace
 from repro_torch.tree import tree_map
 
 
@@ -121,6 +127,9 @@ def periodic_split(kinds):
 
 _MIXERS = ("attn", "mamba", "rwkv")
 _FFNS = ("dense", "dense0", "moe", "rwkv_cm")
+_MIXER_SPAN = {m: f"mixer.{m}" for m in _MIXERS}
+_FFN_SPAN = {"dense": "ffn.mlp", "dense0": "ffn.mlp", "moe": "ffn.moe",
+             "rwkv_cm": "ffn.rwkv_cm"}
 
 
 def _check_kind(kind):
@@ -159,11 +168,15 @@ def block_init(generator, cfg, kind, dtype):
 def _ffn(p, h2, cfg, kind, hooks, with_aux=False, x_prev=None):
     """The block's FFN on its normed input: (y, aux or None).
     ``x_prev`` is the RWKV channel mix's previous token (None: zeros)."""
-    if kind["ffn"] == "rwkv_cm":
-        return S.rwkv_channel_mix(p, h2, cfg, x_prev=x_prev), None
-    if kind["ffn"] == "moe":
-        return M.moe_apply(p["moe"], h2, cfg, hooks.get("route"), with_aux)
-    return L.mlp_apply(p["ffn"], h2, cfg.act), None
+    ffn = kind["ffn"]
+    with _trace.current().span(_FFN_SPAN[ffn], cat="model",
+                               device=ffn == "moe"):
+        if ffn == "rwkv_cm":
+            return S.rwkv_channel_mix(p, h2, cfg, x_prev=x_prev), None
+        if ffn == "moe":
+            return M.moe_apply(p["moe"], h2, cfg, hooks.get("route"),
+                               with_aux)
+        return L.mlp_apply(p["ffn"], h2, cfg.act), None
 
 
 def _cross(p, x, positions, cfg, kind, hooks, enc):
@@ -227,6 +240,19 @@ def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
     block (forward-only: the inference-prefill path)."""
     _check_kind(kind)
     hooks = hooks or {}
+    with _trace.current().span(_MIXER_SPAN[kind["mixer"]], cat="model"):
+        y, cache = _mixer_prefill(p, x, positions, cfg, kind, batch,
+                                  cache_len, dtype, hooks)
+    x = _cross(p, x + y, positions, cfg, kind, hooks, enc)
+    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
+    if kind["ffn"] == "rwkv_cm":
+        cache["rwkv"]["x_prev_cm"] = h2[:, -1, :].clone()
+    return x + _ffn(p, h2, cfg, kind, hooks)[0], cache
+
+
+def _mixer_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
+                   hooks):
+    """The block's mixer over the sequence: (y, its decode cache)."""
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
     cache = {}
     if kind["mixer"] == "attn":
@@ -247,11 +273,7 @@ def block_prefill(p, x, positions, cfg, kind, batch, cache_len, dtype,
         # the normed last rows: what decode's token shift reads
         y, cache["rwkv"] = S.rwkv_time_mix(p, h, cfg, return_state=True,
                                            wkv=hooks.get("wkv"))
-    x = _cross(p, x + y, positions, cfg, kind, hooks, enc)
-    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    if kind["ffn"] == "rwkv_cm":
-        cache["rwkv"]["x_prev_cm"] = h2[:, -1, :].clone()
-    return x + _ffn(p, h2, cfg, kind, hooks)[0], cache
+    return y, cache
 
 
 def block_init_cache(cfg, kind, batch, seq_len, dtype, device=None):
@@ -271,6 +293,22 @@ def block_decode(p, x, position, cfg, kind, cache, hooks=None, enc=None):
     ``enc`` anew (no cache)."""
     _check_kind(kind)
     hooks = hooks or {}
+    with _trace.current().span(_MIXER_SPAN[kind["mixer"]], cat="model"):
+        y, new_cache = _mixer_decode(p, x, position, cfg, kind, cache,
+                                     hooks)
+    x = _cross(p, x + y, position[:, None], cfg, kind, hooks, enc)
+    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
+    st = cache.get("rwkv")
+    y = _ffn(p, h2, cfg, kind, hooks,
+             x_prev=st["x_prev_cm"] if st is not None else None)[0]
+    if st is not None:
+        st["x_prev_cm"].copy_(h2[:, -1, :])
+    return x + y, new_cache
+
+
+def _mixer_decode(p, x, position, cfg, kind, cache, hooks):
+    """The block's mixer for one token: (y, the cache, written in
+    place)."""
     h = L.apply_norm(p["pre_norm"], x, cfg.norm_type)
     new_cache = dict(cache)
     if kind["mixer"] == "attn":
@@ -286,14 +324,7 @@ def block_decode(p, x, position, cfg, kind, cache, hooks=None, enc=None):
                             state=st["wkv"], state_out=st["wkv"],
                             wkv=hooks.get("wkv"))
         st["x_prev_tm"].copy_(h[:, -1, :])
-    x = _cross(p, x + y, position[:, None], cfg, kind, hooks, enc)
-    h2 = L.apply_norm(p["ffn_norm"], x, cfg.norm_type)
-    st = cache.get("rwkv")
-    y = _ffn(p, h2, cfg, kind, hooks,
-             x_prev=st["x_prev_cm"] if st is not None else None)[0]
-    if st is not None:
-        st["x_prev_cm"].copy_(h2[:, -1, :])
-    return x + y, new_cache
+    return y, new_cache
 
 
 # ---------------------------------------------------------------------------

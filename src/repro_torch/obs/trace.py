@@ -1,18 +1,36 @@
-"""Host-side span tracing, the port of ``repro.obs.trace``: where the
-wall-clock time of a run or a serving session went.
+"""Span tracing, the port of ``repro.obs.trace``: where the wall-clock
+time of a run or a serving session went, on the host and on the card.
 
 :class:`SpanTracer` records nested context-manager spans (``with
-tracer.span("round", cat="train", round=r): ...``) and point instants
-with microsecond wall-clock timestamps.  It is a HOST-side instrument
--- it never touches a tensor, so arming it cannot perturb trajectories
--- and its cost is two ``perf_counter`` calls and one dict append a
-span.
+tracer.span("round", cat="train", round=r): ...``), point instants and
+counters with microsecond timestamps on ``time.perf_counter``'s clock:
+a record's ``ts`` is µs after the tracer's ``origin``, so ``origin +
+ts / 1e6`` is the ``perf_counter`` second it began, the clock a
+``torch.profiler`` trace can be tied to.  A host span costs two
+``perf_counter`` calls and one append; it never touches a tensor, so
+arming it cannot perturb trajectories.
+
+A device span (``span(..., device=True)``) also brackets its region
+with two ``torch.cuda.Event``s on the stream current at ``arm``, drawn
+from a pool; ``resolve()`` (after the device has caught up) turns them
+into ``dev_ts`` / ``dev_dur`` on the same clock, through the anchor
+event that the latest ``arm`` recorded right after a synchronise at a
+known host time.  The device's clock drifts from the host's by about
+10 µs a second (one H100), so a caller arms again as often as it can
+afford a synchronise: the serving engine at each call it records.
+Before ``arm`` on a CUDA device, and on the CPU, a device span is a
+host span.  Events are recorded on the stream, not waited on: the host
+runs on as it would untraced.
+
+The records are the newest ``MAX_RECORDS``; ``dropped`` counts those
+pushed out.
 
 Exports:
 
   export(path)   Chrome trace-event JSON (the ``{"traceEvents":
-                 [...]}`` container of "X" complete events and "i"
-                 instants) -- loadable in Perfetto / chrome://tracing.
+                 [...]}`` container of "X" complete events, "i"
+                 instants and "C" counters; device spans on a second
+                 track) -- loadable in Perfetto / chrome://tracing.
   summary()      a per-span-name aggregate table (count, total ms,
                  mean ms, share of the traced wall).
   to_records()   the raw span dicts, JSON-safe -- what the unified
@@ -21,6 +39,10 @@ Exports:
 :class:`NullTracer` is the ``obs="none"`` stand-in: every method is a
 no-op (``span`` returns one shared nullcontext), so an instrumented
 call site costs one attribute lookup when tracing is off.
+
+``current()`` is the tracer that the serving engine armed for the call
+under way (``armed``), and ``NULL`` outside one: the model's layers
+record into it without a tracer in their signatures.
 
 ``profile_to(dir)`` brackets a region with ``torch.profiler`` (CUDA
 activity on a CUDA device) and writes its Chrome trace into ``dir``
@@ -33,50 +55,137 @@ import contextlib
 import json
 import os
 import time
+from collections import deque
 from contextlib import contextmanager
 from typing import List, Optional
 
 import torch
 
+# The newest records a tracer keeps.  A decode step of a served hybrid
+# MoE model (16 layers, 8 of them MoE) records ~95 spans and counter
+# readings: 2**17 records hold a whole 51-s window of a 64-slot chat
+# loop (~1,000 steps) at some 60 MB, and bound an operator's long
+# session, whose oldest records are pushed out.
+MAX_RECORDS = 1 << 17
+
 
 class SpanTracer:
-    """Nested wall-clock spans with Chrome trace-event export."""
+    """Nested wall-clock spans, device spans and counters, with Chrome
+    trace-event export."""
 
     active = True
 
     def __init__(self):
-        self.records: List[dict] = []   # closed spans + instants
+        self._records = deque(maxlen=MAX_RECORDS)
+        self._added = 0
+        # (record, start event, end event, anchor) of device spans not
+        # yet resolved
+        self._pending = deque(maxlen=MAX_RECORDS)
+        self._pool: List[torch.cuda.Event] = []
+        self._anchor = None       # (host second, event) once armed
+        self._device = self._stream = None
         self._depth = 0
-        self._t0 = time.perf_counter()
+        self.counters = {}
+        self.origin = time.perf_counter()
         self._pid = os.getpid()
 
     # ------------------------------------------------------------------
+    @property
+    def records(self) -> List[dict]:
+        """The kept records, oldest first (closed spans, instants,
+        counter readings)."""
+        return list(self._records)
+
+    @property
+    def dropped(self) -> int:
+        """Records pushed out by newer ones (``MAX_RECORDS``)."""
+        return self._added - len(self._records)
+
     def _us(self, t: float) -> float:
-        return (t - self._t0) * 1e6
+        return (t - self.origin) * 1e6
+
+    def _add(self, rec):
+        self._records.append(rec)
+        self._added += 1
+
+    def arm(self, device):
+        """Lets device spans time the work on ``device`` (its current
+        stream): synchronises it, records the anchor event at a known
+        host time, and resolves the device spans before it (their events
+        are done), so that their events return to the pool.  On a CPU
+        device, device spans stay host spans."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            self._anchor = self._stream = None
+            return
+        self._device = device
+        self._stream = torch.cuda.current_stream(device)
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        self._anchor = (t, ev)
+        self.resolve()
+
+    def _event(self):
+        ev = self._pool.pop() if self._pool else \
+            torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
 
     @contextmanager
-    def span(self, name: str, cat: str = "run", **args):
-        """Record one nested span around the with-body."""
+    def span(self, name: str, cat: str = "run", device: bool = False,
+             **args):
+        """Record one nested span around the with-body; ``device``: also
+        time the device's work enqueued inside it (module doc)."""
         depth = self._depth
         self._depth += 1
+        anchor = self._anchor if device else None
+        if anchor is not None:
+            e0 = self._event()
         t_in = time.perf_counter()
         try:
             yield
         finally:
+            if anchor is not None:
+                e1 = self._event()
             t_out = time.perf_counter()
             self._depth = depth
-            self.records.append({
-                "name": name, "cat": cat, "ph": "X",
-                "ts": self._us(t_in),
-                "dur": (t_out - t_in) * 1e6,
-                "depth": depth, "args": args})
+            rec = {"name": name, "cat": cat, "ph": "X",
+                   "ts": self._us(t_in),
+                   "dur": (t_out - t_in) * 1e6,
+                   "depth": depth, "args": args}
+            self._add(rec)
+            if anchor is not None:
+                self._pending.append((rec, e0, e1, anchor))
 
     def instant(self, name: str, cat: str = "run", **args):
         """Record a point event (a request lifecycle edge)."""
-        self.records.append({
+        self._add({
             "name": name, "cat": cat, "ph": "i",
             "ts": self._us(time.perf_counter()),
             "dur": 0.0, "depth": self._depth, "args": args})
+
+    def count(self, name: str, n: int = 1):
+        """Add ``n`` to counter ``name``; its running total is recorded."""
+        total = self.counters.get(name, 0) + n
+        self.counters[name] = total
+        self._add({
+            "name": name, "cat": "counter", "ph": "C",
+            "ts": self._us(time.perf_counter()),
+            "dur": 0.0, "depth": self._depth, "args": {"value": total}})
+
+    def resolve(self):
+        """Gives every device span recorded so far its ``dev_ts`` and
+        ``dev_dur`` (µs on the records' clock), waiting for the device
+        to reach it, and returns its events to the pool."""
+        if self._pending:
+            torch.cuda.synchronize(self._device)
+        for rec, e0, e1, (t, anchor) in self._pending:
+            rec["dev_ts"] = self._us(t + anchor.elapsed_time(e0) / 1e3)
+            rec["dev_dur"] = e0.elapsed_time(e1) * 1e3
+            self._pool += (e0, e1)
+        self._pending.clear()
 
     @contextmanager
     def profile_to(self, profile_dir: Optional[str], device=None):
@@ -103,25 +212,40 @@ class SpanTracer:
 
     # ------------------------------------------------------------------
     def to_records(self) -> List[dict]:
-        """The raw span/instant dicts (JSON-safe; args stringified)."""
+        """The raw span/instant/counter dicts (JSON-safe; args
+        stringified), device spans resolved."""
+        self.resolve()
         return [{**r, "args": {k: _safe(v)
                                for k, v in r["args"].items()}}
-                for r in self.records]
+                for r in self._records]
 
     def export(self, path: str) -> str:
         """Write Chrome trace-event JSON (Perfetto-loadable); returns
         ``path``.  Spans map to "X" complete events on one pid/tid so
-        the viewer rebuilds the nesting from ts/dur containment."""
+        the viewer rebuilds the nesting from ts/dur containment; a
+        device span's device interval goes to a second track (tid 2)."""
         events = []
+        device = False
         for r in self.to_records():
             ev = {"name": r["name"], "cat": r["cat"], "ph": r["ph"],
                   "ts": r["ts"], "pid": self._pid, "tid": 1,
                   "args": r["args"]}
             if r["ph"] == "X":
                 ev["dur"] = r["dur"]
+            elif r["ph"] == "C":
+                ev["args"] = {r["name"]: r["args"]["value"]}
             else:
                 ev["s"] = "t"       # instant scope: thread
             events.append(ev)
+            if "dev_ts" in r:
+                device = True
+                events.append({**ev, "ts": r["dev_ts"], "dur": r["dev_dur"],
+                               "tid": 2})
+        if device:
+            events += [{"name": "thread_name", "ph": "M", "ts": 0,
+                        "pid": self._pid, "tid": tid,
+                        "args": {"name": track}}
+                       for tid, track in ((1, "host"), (2, "device"))]
         blob = {"traceEvents": events, "displayTimeUnit": "ms"}
         d = os.path.dirname(os.path.abspath(path))
         if d:
@@ -132,7 +256,7 @@ class SpanTracer:
 
     def summary(self) -> str:
         """Per-span-name aggregate table over the recorded spans."""
-        spans = [r for r in self.records if r["ph"] == "X"]
+        spans = [r for r in self._records if r["ph"] == "X"]
         if not spans:
             return "no spans recorded"
         agg = {}
@@ -158,15 +282,30 @@ class NullTracer:
     costs an attribute lookup and nothing else."""
 
     active = False
+    dropped = 0
     _null = contextlib.nullcontext()
 
-    def span(self, name: str, cat: str = "run", **args):
+    @property
+    def records(self) -> List[dict]:
+        return []
+
+    def span(self, name: str, cat: str = "run", device: bool = False,
+             **args):
         return self._null
 
     def profile_to(self, profile_dir, device=None):
         return self._null
 
     def instant(self, name: str, cat: str = "run", **args):
+        pass
+
+    def count(self, name: str, n: int = 1):
+        pass
+
+    def arm(self, device):
+        pass
+
+    def resolve(self):
         pass
 
     def to_records(self) -> List[dict]:
@@ -180,6 +319,28 @@ class NullTracer:
 
     def summary(self) -> str:
         return "tracing off (obs='none')"
+
+
+NULL = NullTracer()
+_current = NULL
+
+
+def current():
+    """The tracer armed for the serving call under way; ``NULL`` outside
+    one."""
+    return _current
+
+
+@contextmanager
+def armed(tracer):
+    """Makes ``tracer`` the one ``current()`` returns inside the
+    with-body."""
+    global _current
+    prev, _current = _current, tracer
+    try:
+        yield tracer
+    finally:
+        _current = prev
 
 
 def _safe(v):

@@ -24,14 +24,35 @@ in the state's ``"enc"`` (zero at construction, from
 against ``cache_len``; the reference counts only the prompt and the new
 tokens, and its prefill then keeps only the last ``cache_len`` positions,
 dropping image rows (ROADMAP.md, "Documented differences").
+
+Tracing (``repro_torch.obs.trace``): with a ``SpanTracer`` passed as
+``tracer`` the engine records into it at every call; with none, into
+its own ``tracer`` exactly while a ``torch.profiler`` records (checked
+once an ``admit`` or ``step``), and takes the off path otherwise.  For
+the call's length it is the tracer the model's layers record into
+(``trace.current()``).  Spans: ``admit`` a pass, and in it a device span
+``prefill`` a request holding ``prefill.h2d`` (the prompt to the
+device), ``prefill.dispatch`` (the ``model.prefill`` call),
+``prefill.first_token`` (its sample, copied to the host) and
+``prefill.insert_state``; a device span ``step`` holding
+``decode.dispatch`` (the ``model.decode_step`` call, launch side),
+``decode.sample`` (the argmax copied to the host, which waits on the
+device) and ``decode.slots`` (the slots' bookkeeping).  Counters:
+``prefills``, ``prompt_tokens``, ``decode_steps``.  Whether traced or
+not, ``lifecycle`` keeps each request's submit, prefill start and first
+token times (``perf_counter`` seconds).
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+from torch._C._autograd import _profiler_enabled
+
+from repro_torch.obs import trace as _trace
 
 
 @dataclass
@@ -53,9 +74,18 @@ class _Slot:
     generated: list = field(default_factory=list)
 
 
+@dataclass
+class RequestTimes:
+    """A request's lifecycle on ``time.perf_counter``'s clock (None:
+    not reached yet)."""
+    t_submit: float
+    t_prefill_start: Optional[float] = None
+    t_first_token: Optional[float] = None
+
+
 class ServingEngine:
     def __init__(self, model, params, *, max_batch=8, cache_len=256,
-                 seed=0):
+                 seed=0, tracer=None):
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -66,6 +96,9 @@ class ServingEngine:
         self.slots = [_Slot() for _ in range(max_batch)]
         self.queue: deque = deque()
         self.done: Dict[int, list] = {}
+        self.lifecycle: Dict[int, RequestTimes] = {}
+        self.tracer = tracer if tracer is not None else _trace.SpanTracer()
+        self._follow_profiler = tracer is None
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self._last_tok = torch.zeros((max_batch, 1), dtype=torch.int32)
         self.prefills = 0
@@ -92,7 +125,18 @@ class ServingEngine:
                 f"request {req.uid}: a prompt of {len(req.prompt)} tokens "
                 f"and {req.max_new_tokens} new tokens{after} must be "
                 f"non-empty and fit the {self.cache_len}-slot cache")
+        self.lifecycle[req.uid] = RequestTimes(time.perf_counter())
         self.queue.append(req)
+
+    def _call_tracer(self):
+        """The tracer this call records into (module doc), armed anew on
+        the engine's device: the device's clock is tied to the host's at
+        every call recorded, where the device has little or nothing
+        left to run, so the two clocks' drift never builds up."""
+        if self._follow_profiler and not _profiler_enabled():
+            return _trace.NULL
+        self.tracer.arm(self.device)
+        return self.tracer
 
     def _insert_state(self, slot_idx, single_state, first_tok):
         """Splice a B=1 prefill state into batch slot `slot_idx`.
@@ -113,25 +157,45 @@ class ServingEngine:
             self.state["enc"][slot_idx] = single_state["enc"][0]
         self._last_tok[slot_idx, 0] = first_tok
 
-    def _admit(self):
-        for i, slot in enumerate(self.slots):
-            if slot.active or not self.queue:
-                continue
-            req = self.queue.popleft()
-            batch = {"tokens": torch.tensor([req.prompt], dtype=torch.int64,
-                                            device=self.device)}
+    def admit(self):
+        """Prefills queued requests into the free slots, one at a time
+        (B = 1), each first token sampled and copied to the host."""
+        tr = self._call_tracer()
+        with _trace.armed(tr), tr.span("admit", cat="serve"):
+            for i, slot in enumerate(self.slots):
+                if slot.active or not self.queue:
+                    continue
+                self._prefill_into(i, self.queue.popleft(), tr)
+
+    _admit = admit      # the name the benchmark harness drives
+
+    def _prefill_into(self, i, req, tr):
+        times = self.lifecycle[req.uid]
+        times.t_prefill_start = time.perf_counter()
+        with tr.span("prefill", cat="serve", device=True, uid=req.uid,
+                     tokens=len(req.prompt)):
+            with tr.span("prefill.h2d", cat="serve"):
+                batch = {"tokens": torch.tensor(
+                    [req.prompt], dtype=torch.int64, device=self.device)}
             if self._prefix is not None:
                 batch["prefix_emb"] = self._prefix
-            logits, st = self.model.prefill(self.params, batch,
-                                            cache_len=self.cache_len)
-            self.prefills += 1
-            first = self._sample(logits[:, -1, :], req.temperature)
-            self._insert_state(i, st, int(first[0]))
-            self.slots[i] = _Slot(active=True, uid=req.uid,
-                                  remaining=req.max_new_tokens - 1,
-                                  stop_token=req.stop_token,
-                                  temperature=req.temperature,
-                                  generated=[int(first[0])])
+            with tr.span("prefill.dispatch", cat="serve"):
+                logits, st = self.model.prefill(self.params, batch,
+                                                cache_len=self.cache_len)
+            with tr.span("prefill.first_token", cat="serve"):
+                first = int(self._sample(logits[:, -1, :],
+                                         req.temperature)[0])
+            times.t_first_token = time.perf_counter()
+            with tr.span("prefill.insert_state", cat="serve"):
+                self._insert_state(i, st, first)
+        self.prefills += 1
+        tr.count("prefills")
+        tr.count("prompt_tokens", len(req.prompt))
+        self.slots[i] = _Slot(active=True, uid=req.uid,
+                              remaining=req.max_new_tokens - 1,
+                              stop_token=req.stop_token,
+                              temperature=req.temperature,
+                              generated=[first])
 
     def _sample(self, logits, temperature):
         """[n, V] logits -> [n] token ids on the host."""
@@ -144,12 +208,22 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self):
         """One decode step for every active slot."""
-        toks = self._last_tok.to(self.device)
-        logits, self.state = self.model.decode_step(self.params, self.state,
-                                                    toks)
+        tr = self._call_tracer()
+        with _trace.armed(tr), tr.span("step", cat="serve", device=True):
+            toks = self._last_tok.to(self.device)
+            with tr.span("decode.dispatch", cat="serve"):
+                logits, self.state = self.model.decode_step(
+                    self.params, self.state, toks)
+            with tr.span("decode.sample", cat="serve"):
+                lg = logits[:, -1, :]
+                greedy = self._sample(lg, 0.0)
+            with tr.span("decode.slots", cat="serve"):
+                self._advance(lg, greedy)
         self.decode_steps += 1
-        lg = logits[:, -1, :]
-        greedy = self._sample(lg, 0.0)
+        tr.count("decode_steps")
+
+    def _advance(self, lg, greedy):
+        """Each active slot takes its token; a finished one is freed."""
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
@@ -167,7 +241,7 @@ class ServingEngine:
     def run(self):
         """Drain the queue; returns {uid: generated tokens}."""
         while self.queue or any(s.active for s in self.slots):
-            self._admit()
+            self.admit()
             if any(s.active for s in self.slots):
                 self.step()
         return dict(self.done)

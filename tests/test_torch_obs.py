@@ -453,6 +453,109 @@ def test_null_tracer_is_inert_and_refuses_export(tmp_path):
     assert tr.summary() == NullTracer().summary()
 
 
+def test_span_tracer_origin_puts_records_on_perf_counter():
+    import time
+    tr = SpanTracer()
+    t0 = time.perf_counter()
+    with tr.span("outer"):
+        t1 = time.perf_counter()
+        with tr.span("inner"):
+            pass
+        t2 = time.perf_counter()
+    t3 = time.perf_counter()
+    by = {r["name"]: r for r in tr.records}
+    outer, inner = by["outer"], by["inner"]
+    start = tr.origin + outer["ts"] / 1e6
+    assert t0 <= start <= t1
+    assert t2 <= start + outer["dur"] / 1e6 <= t3
+    assert t1 <= tr.origin + inner["ts"] / 1e6 <= t2
+
+
+def test_span_tracer_counters_keep_running_totals(tmp_path):
+    tr = SpanTracer()
+    tr.count("prefills")
+    tr.count("prompt_tokens", 300)
+    tr.count("prefills")
+    tr.count("prompt_tokens", 12)
+    assert tr.counters == {"prefills": 2, "prompt_tokens": 312}
+    recs = [r for r in tr.to_records() if r["ph"] == "C"]
+    assert [(r["name"], r["args"]["value"]) for r in recs] == [
+        ("prefills", 1), ("prompt_tokens", 300), ("prefills", 2),
+        ("prompt_tokens", 312)]
+    doc = json.load(open(tr.export(str(tmp_path / "c.json"))))
+    last = [e for e in doc["traceEvents"] if e["ph"] == "C"][-1]
+    assert last["args"] == {"prompt_tokens": 312}
+
+
+def test_span_tracer_keeps_the_newest_records(monkeypatch):
+    from repro_torch.obs import trace
+    monkeypatch.setattr(trace, "MAX_RECORDS", 8)
+    tr = SpanTracer()
+    for i in range(13):
+        with tr.span("s", i=i):
+            pass
+    assert tr.dropped == 5
+    assert [r["args"]["i"] for r in tr.records] == list(range(5, 13))
+    assert SpanTracer().dropped == NullTracer().dropped == 0
+
+
+def test_device_spans_are_host_spans_on_the_cpu():
+    tr = SpanTracer()
+    tr.arm("cpu")
+    with tr.span("step", cat="serve", device=True, n=1):
+        torch.ones(8).sum()
+    tr.resolve()
+    (rec,) = tr.to_records()
+    assert "dev_ts" not in rec and rec["args"] == {"n": 1}
+    assert set(rec) == {"name", "cat", "ph", "ts", "dur", "depth", "args"}
+
+
+class _HostEvent:
+    """A stand-in for ``torch.cuda.Event`` on the host's clock."""
+
+    def record(self, stream=None):
+        import time
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def test_device_spans_resolve_onto_the_host_clock_and_export_a_track(
+        tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", lambda **kw: _HostEvent())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: None)
+    tr = SpanTracer()
+    tr.arm("cuda")
+    with tr.span("step", cat="serve", device=True):
+        with tr.span("decode.dispatch", cat="serve"):
+            pass
+    with tr.span("step", cat="serve", device=True):
+        pass
+    recs = tr.to_records()
+    steps = [r for r in recs if r["name"] == "step"]
+    assert len(steps) == 2 and len(tr._pool) == 4
+    for r in steps:
+        # the events bracket the host span, both ends read early by the
+        # time the anchor took to record (here µs; 1 ms of slack)
+        end, dev_end = r["ts"] + r["dur"], r["dev_ts"] + r["dev_dur"]
+        assert r["ts"] - 1e3 <= r["dev_ts"] <= r["ts"]
+        assert end - 1e3 <= dev_end <= end
+    doc = json.load(open(tr.export(str(tmp_path / "d.json"))))
+    evs = doc["traceEvents"]
+    tracks = {e["args"]["name"]: e["tid"] for e in evs if e["ph"] == "M"}
+    assert tracks == {"host": 1, "device": 2}
+    on_device = [e for e in evs if e["ph"] == "X" and e["tid"] == 2]
+    assert [e["name"] for e in on_device] == ["step", "step"]
+    assert [e["ts"] for e in on_device] == [r["dev_ts"] for r in steps]
+    assert {e["name"] for e in evs if e["ph"] == "X" and e["tid"] == 1} \
+        == {"step", "decode.dispatch"}
+
+
 def test_profile_to_writes_a_torch_profiler_trace(tmp_path):
     tr = SpanTracer()
     with tr.profile_to(None):       # the caller asked for nothing
