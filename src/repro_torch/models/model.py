@@ -247,19 +247,19 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params, state, tokens):
-        """tokens: [B,1] -> (logits [B,1,V], new_state).  The caches in
-        ``state`` are written in place; the new state shares them."""
+        """tokens: [B,1] -> (logits [B,1,V], state).  ``state`` is
+        advanced in place: every cache written, ``position`` one on;
+        it is returned, and every tensor in it stays the same object, so
+        that a CUDA graph captured over the step replays it (the serving
+        engine's)."""
         cfg = self.cfg
         h = self._embed(params, tokens)
         pos = state["position"]
-        h, new_cache = T.stack_decode(params["stack"], h, pos, cfg,
-                                      self.kinds, state["cache"],
-                                      self.hooks, state.get("enc"))
+        h, _ = T.stack_decode(params["stack"], h, pos, cfg, self.kinds,
+                              state["cache"], self.hooks, state.get("enc"))
         logits = self._head(params, h)
-        new_state = dict(state)
-        new_state["cache"] = new_cache
-        new_state["position"] = pos + 1
-        return logits, new_state
+        pos.add_(1)
+        return logits, state
 
 
 def build_model(cfg, clients=1, **hooks):

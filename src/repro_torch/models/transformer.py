@@ -55,6 +55,8 @@ device span too, holding ``moe_apply``'s own).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -453,12 +455,12 @@ def stack_prefill(params, x, positions, cfg, kinds, batch, cache_len,
 def stack_decode(params, x, position, cfg, kinds, cache, hooks=None,
                  enc=None):
     """One-token decode over the stack; every layer's cache is written
-    in place and ``cache`` is returned."""
+    in place (the tree's dicts and tensors stay the same objects) and
+    ``cache`` is returned."""
     layout = StackLayout(cfg, kinds)
     for i in range(layout.prefix):
-        x, cache[f"layer_{i}"] = block_decode(
-            params[f"layer_{i}"], x, position, cfg, kinds[i],
-            cache[f"layer_{i}"], hooks, enc)
+        x, _ = block_decode(params[f"layer_{i}"], x, position, cfg,
+                            kinds[i], cache[f"layer_{i}"], hooks, enc)
     for g in range(layout.n_groups):
         gparams = _group(params["scanned"], g)
         gcache = _group(cache["scanned"], g)
@@ -528,7 +530,9 @@ def embed_input(params, ids, cfg, prefix_emb=None, clients=1):
     ``exchange_features`` under ``cfg.vfl.exchange``, and d_model must
     divide among the clients, as the reference's ``shard_map``
     requires.  Returns [B, P + S, D], scaled by sqrt(d_model) where the
-    config has a final softcap (gemma2), in the table's dtype."""
+    config has a final softcap (gemma2), in the table's dtype: by a
+    0-d tensor made once per value, dtype and device
+    (``_emb_scale``), which a CUDA graph's capture can read."""
     emb_scale = cfg.d_model ** 0.5 if cfg.final_logit_softcap else 1.0
     key = "vfl_embedding" if cfg.vfl.enabled else "embedding"
     if clients == 1 or not cfg.vfl.enabled:
@@ -542,7 +546,12 @@ def embed_input(params, ids, cfg, prefix_emb=None, clients=1):
         h = exchange_features(client_inputs(params[key]["table"], ids,
                                             prefix_emb, clients),
                               cfg.vfl.exchange)
-    return h * torch.tensor(emb_scale, dtype=h.dtype, device=h.device)
+    return h * _emb_scale(emb_scale, h.dtype, h.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _emb_scale(value, dtype, device):
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def logits_from_hidden(params, h, cfg):

@@ -22,6 +22,15 @@ Before ``arm`` on a CUDA device, and on the CPU, a device span is a
 host span.  Events are recorded on the stream, not waited on: the host
 runs on as it would untraced.
 
+A CUDA graph's replay runs no Python, so the spans inside it are taken
+at its capture: :class:`GraphSpans` is the tracer a capture records
+into, each device span's boundaries timing events captured as event
+nodes of the graph (host spans are not kept).  After each replay
+``SpanTracer.replayed`` writes them out as records, their host times
+inside the replay's call in the order they were captured, their device
+times from the graph's events; the next ``arm`` or ``resolve`` reads
+those before another replay records over them.
+
 The records are the newest ``MAX_RECORDS``; ``dropped`` counts those
 pushed out.
 
@@ -78,8 +87,8 @@ class SpanTracer:
     def __init__(self):
         self._records = deque(maxlen=MAX_RECORDS)
         self._added = 0
-        # (record, start event, end event, anchor) of device spans not
-        # yet resolved
+        # (record, start event, end event, anchor, whether the events
+        # return to the pool) of device spans not yet resolved
         self._pending = deque(maxlen=MAX_RECORDS)
         self._pool: List[torch.cuda.Event] = []
         self._anchor = None       # (host second, event) once armed
@@ -157,7 +166,28 @@ class SpanTracer:
                    "depth": depth, "args": args}
             self._add(rec)
             if anchor is not None:
-                self._pending.append((rec, e0, e1, anchor))
+                self._pending.append((rec, e0, e1, anchor, True))
+
+    def replayed(self, graph_spans, t_in: float, t_out: float):
+        """Records the device spans of one replay of a captured graph
+        (``graph_spans``, a :class:`GraphSpans`), which ran from host
+        second ``t_in`` to ``t_out``: each one level below the span open
+        now plus its depth in the capture, its host interval a slice of
+        [t_in, t_out] in the order its boundaries were captured (so that
+        they nest as they did), its device interval from the graph's
+        events.  Those events belong to the graph and go to no pool."""
+        spans = graph_spans.spans
+        tick = (t_out - t_in) / (2 * len(spans) + 1)
+        for s in spans:
+            t0 = t_in + (s["k_in"] + 1) * tick
+            t1 = t_in + (s["k_out"] + 1) * tick
+            rec = {"name": s["name"], "cat": s["cat"], "ph": "X",
+                   "ts": self._us(t0), "dur": (t1 - t0) * 1e6,
+                   "depth": self._depth + s["depth"], "args": s["args"]}
+            self._add(rec)
+            if self._anchor is not None:
+                self._pending.append((rec, s["e0"], s["e1"], self._anchor,
+                                      False))
 
     def instant(self, name: str, cat: str = "run", **args):
         """Record a point event (a request lifecycle edge)."""
@@ -181,10 +211,11 @@ class SpanTracer:
         to reach it, and returns its events to the pool."""
         if self._pending:
             torch.cuda.synchronize(self._device)
-        for rec, e0, e1, (t, anchor) in self._pending:
+        for rec, e0, e1, (t, anchor), pooled in self._pending:
             rec["dev_ts"] = self._us(t + anchor.elapsed_time(e0) / 1e3)
             rec["dev_dur"] = e0.elapsed_time(e1) * 1e3
-            self._pool += (e0, e1)
+            if pooled:
+                self._pool += (e0, e1)
         self._pending.clear()
 
     @contextmanager
@@ -302,6 +333,9 @@ class NullTracer:
     def count(self, name: str, n: int = 1):
         pass
 
+    def replayed(self, graph_spans, t_in: float, t_out: float):
+        pass
+
     def arm(self, device):
         pass
 
@@ -323,6 +357,50 @@ class NullTracer:
 
 NULL = NullTracer()
 _current = NULL
+
+
+def _graph_event():
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+class GraphSpans:
+    """The tracer a CUDA graph's capture records into (module doc): a
+    device span's boundaries are events made by ``event`` (timing
+    events captured as event nodes; a CPU test passes stand-ins) and
+    recorded on the capturing stream; a host span only keeps the
+    depth.  ``spans``: per device span, in the order it opened, its
+    name, category, depth, arguments, events, and the indices of its
+    opening and closing among all boundaries kept."""
+
+    def __init__(self, event=_graph_event):
+        self.spans = []
+        self._event = event
+        self._depth = 0
+        self._k = 0
+
+    def _mark(self):
+        ev = self._event()
+        ev.record()
+        self._k += 1
+        return ev, self._k - 1
+
+    @contextmanager
+    def span(self, name: str, cat: str = "run", device: bool = False,
+             **args):
+        depth = self._depth
+        self._depth += 1
+        s = None
+        if device:
+            e0, k = self._mark()
+            s = {"name": name, "cat": cat, "depth": depth, "args": args,
+                 "e0": e0, "k_in": k}
+            self.spans.append(s)
+        try:
+            yield
+        finally:
+            if s is not None:
+                s["e1"], s["k_out"] = self._mark()
+            self._depth = depth
 
 
 def current():

@@ -38,9 +38,29 @@ device), ``prefill.dispatch`` (the ``model.prefill`` call),
 ``decode.dispatch`` (the ``model.decode_step`` call, launch side),
 ``decode.sample`` (the argmax copied to the host, which waits on the
 device) and ``decode.slots`` (the slots' bookkeeping).  Counters:
-``prefills``, ``prompt_tokens``, ``decode_steps``.  Whether traced or
-not, ``lifecycle`` keeps each request's submit, prefill start and first
+``prefills``, ``prompt_tokens``, ``decode_steps``, and
+``decode_graph_replays`` (below).  Whether traced or not,
+``lifecycle`` keeps each request's submit, prefill start and first
 token times (``perf_counter`` seconds).
+
+The decode step as one CUDA graph: a step's shapes are fixed for the
+engine's life (``max_batch`` slots, inactive ones running padding;
+caches of ``cache_len`` written in place), so on a CUDA device the
+first step runs the model eagerly and is then captured
+(``torch.cuda.graph``, not run), and every later step copies the fed
+tokens into the static buffer the graph reads and replays it
+(``graph_replays`` counts them), instead of launching the model's
+kernels one by one from Python.  The graph reads and writes the
+state's tensors in place (caches, ``position``, the audio family's
+``"enc"``), which ``_insert_state`` writes between steps; sampling
+and the slots' bookkeeping stay outside it.  On the CPU every step
+runs eagerly.  The kernels' launch counters (``.launches`` of
+``KERNELS``) count what a replay launches, as an eager step would.  A
+replayed step records ``step``, ``decode.dispatch`` (now the replay),
+``decode.sample`` and ``decode.slots`` as before, and the model's device
+spans through ``SpanTracer.replayed``; the model's host-only spans
+(``mixer.*``, ``ffn.mlp``/``ffn.rwkv_cm``, ``lm_head``) are not
+recorded on a replayed step.
 """
 from __future__ import annotations
 
@@ -52,7 +72,14 @@ from typing import Dict, List, Optional
 import torch
 from torch._C._autograd import _profiler_enabled
 
+from repro_torch.kernels import (
+    flash_attention, mamba_scan, mamba_scan_fused, moe_router, rwkv6_scan,
+)
 from repro_torch.obs import trace as _trace
+
+# the model's kernels, whose wrappers count their launches
+KERNELS = (flash_attention, mamba_scan, mamba_scan_fused, moe_router,
+           rwkv6_scan)
 
 
 @dataclass
@@ -101,8 +128,13 @@ class ServingEngine:
         self._follow_profiler = tracer is None
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self._last_tok = torch.zeros((max_batch, 1), dtype=torch.int32)
+        # the tokens a decode step reads, on the device
+        self._toks = torch.zeros((max_batch, 1), dtype=torch.int32,
+                                 device=self.device)
+        self._graph = None
         self.prefills = 0
         self.decode_steps = 0
+        self.graph_replays = 0
         cfg = model.cfg
         # the prefix every admission passes, and the decoder positions
         # it takes (a vlm's image rows; an encoder's frames take none)
@@ -134,6 +166,9 @@ class ServingEngine:
         every call recorded, where the device has little or nothing
         left to run, so the two clocks' drift never builds up."""
         if self._follow_profiler and not _profiler_enabled():
+            # the last traced replay's events, read before another
+            # replay records over them (a no-op with nothing pending)
+            self.tracer.resolve()
             return _trace.NULL
         self.tracer.arm(self.device)
         return self.tracer
@@ -209,11 +244,12 @@ class ServingEngine:
     def step(self):
         """One decode step for every active slot."""
         tr = self._call_tracer()
+        replay = self._graph is not None
         with _trace.armed(tr), tr.span("step", cat="serve", device=True):
-            toks = self._last_tok.to(self.device)
+            self._toks.copy_(self._last_tok)
             with tr.span("decode.dispatch", cat="serve"):
-                logits, self.state = self.model.decode_step(
-                    self.params, self.state, toks)
+                logits = self._graph.replay(tr) if replay else \
+                    self._decode_eagerly()
             with tr.span("decode.sample", cat="serve"):
                 lg = logits[:, -1, :]
                 greedy = self._sample(lg, 0.0)
@@ -221,6 +257,19 @@ class ServingEngine:
                 self._advance(lg, greedy)
         self.decode_steps += 1
         tr.count("decode_steps")
+        if replay:
+            self.graph_replays += 1
+            tr.count("decode_graph_replays")
+
+    def _decode_eagerly(self):
+        """The model's decode step launched from Python; on a CUDA
+        device, captured after it (module doc)."""
+        logits, _ = self.model.decode_step(self.params, self.state,
+                                           self._toks)
+        if self.device.type == "cuda":
+            self._graph = _DecodeGraph(self.model, self.params, self.state,
+                                       self._toks)
+        return logits
 
     def _advance(self, lg, greedy):
         """Each active slot takes its token; a finished one is freed."""
@@ -251,6 +300,31 @@ class ServingEngine:
         return {"active": sum(s.active for s in self.slots),
                 "queued": len(self.queue),
                 "done": len(self.done)}
+
+
+class _DecodeGraph:
+    """A decode step captured as a CUDA graph over the engine's static
+    tensors (module doc): ``logits`` is its output, which each replay
+    writes anew."""
+
+    def __init__(self, model, params, state, tokens):
+        before = [fn.launches for fn in KERNELS]
+        self.spans = _trace.GraphSpans()
+        self.graph = torch.cuda.CUDAGraph()
+        with _trace.armed(self.spans), torch.cuda.graph(self.graph):
+            self.logits, _ = model.decode_step(params, state, tokens)
+        # what a replay launches; the capture itself launched nothing
+        self.launches = [fn.launches - n for fn, n in zip(KERNELS, before)]
+        for fn, n in zip(KERNELS, before):
+            fn.launches = n
+
+    def replay(self, tr):
+        t_in = time.perf_counter()
+        self.graph.replay()
+        for fn, n in zip(KERNELS, self.launches):
+            fn.launches += n
+        tr.replayed(self.spans, t_in, time.perf_counter())
+        return self.logits
 
 
 def _params_device(params):
