@@ -199,10 +199,27 @@ class Model:
     # prefill (forward-only; returns logits and a populated decode state)
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, params, batch, cache_len=None):
+    def prefill(self, params, batch, cache_len=None, last=None,
+                graphs=None):
         """batch as in forward_logits. Returns (last-token logits
         [B,1,V], decode state ready for decode_step at position
-        seq_len)."""
+        seq_len).
+
+        ``last``: a [1] int64 tensor on the batch's device, the index of
+        the prompt's last token where the tokens past it are padding;
+        the logits are that row's and the position is one past it.  The
+        padding's rows of the cache hold its keys and values at their
+        positions, after the prompt's, which a causal decode masks until
+        it writes over them.  ``graphs``: an object that runs the
+        prefill instead (``graphs.run(batch)``: the serving engine's
+        captured prefills), so that whoever wraps this method sees
+        every admission's prefill."""
+        if graphs is not None:
+            return graphs.run(batch)
+        return self._prefill(params, batch, cache_len, last)
+
+    @torch.no_grad()
+    def _prefill(self, params, batch, cache_len, last):
         cfg = self.cfg
         B = batch["tokens"].shape[0]
         h, enc = self._inputs(params, batch)
@@ -212,10 +229,14 @@ class Model:
         h, cache = T.stack_prefill(params["stack"], h, positions, cfg,
                                    self.kinds, B, cache_len, self.dtype,
                                    self.hooks, enc)
-        logits = self._head(params, h[:, -1:, :])
-        state = {"cache": cache,
-                 "position": torch.full((B,), S_total, dtype=torch.int32,
-                                        device=h.device)}
+        if last is None:
+            logits = self._head(params, h[:, -1:, :])
+            pos = torch.full((B,), S_total, dtype=torch.int32,
+                             device=h.device)
+        else:
+            logits = self._head(params, h.index_select(1, last))
+            pos = (last + 1).to(torch.int32).expand(B).clone()
+        state = {"cache": cache, "position": pos}
         if cfg.is_encoder_decoder:
             state["enc"] = enc
         return logits, state

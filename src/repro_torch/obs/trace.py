@@ -29,7 +29,9 @@ nodes of the graph (host spans are not kept).  After each replay
 ``SpanTracer.replayed`` writes them out as records, their host times
 inside the replay's call in the order they were captured, their device
 times from the graph's events; the next ``arm`` or ``resolve`` reads
-those before another replay records over them.
+those before another replay records over them.  The counters the
+capture counted (``GraphSpans.counts``) are added once a replay, one
+reading a counter.
 
 The records are the newest ``MAX_RECORDS``; ``dropped`` counts those
 pushed out.
@@ -175,7 +177,8 @@ class SpanTracer:
         now plus its depth in the capture, its host interval a slice of
         [t_in, t_out] in the order its boundaries were captured (so that
         they nest as they did), its device interval from the graph's
-        events.  Those events belong to the graph and go to no pool."""
+        events.  Those events belong to the graph and go to no pool.
+        Then each counter the capture counted, by what it counted."""
         spans = graph_spans.spans
         tick = (t_out - t_in) / (2 * len(spans) + 1)
         for s in spans:
@@ -188,6 +191,8 @@ class SpanTracer:
             if self._anchor is not None:
                 self._pending.append((rec, s["e0"], s["e1"], self._anchor,
                                       False))
+        for name, n in graph_spans.counts.items():
+            self.count(name, n)
 
     def instant(self, name: str, cat: str = "run", **args):
         """Record a point event (a request lifecycle edge)."""
@@ -370,13 +375,20 @@ class GraphSpans:
     recorded on the capturing stream; a host span only keeps the
     depth.  ``spans``: per device span, in the order it opened, its
     name, category, depth, arguments, events, and the indices of its
-    opening and closing among all boundaries kept."""
+    opening and closing among all boundaries kept; ``counts``: what the
+    captured step added to each counter, which every replay adds
+    again."""
 
     def __init__(self, event=_graph_event):
         self.spans = []
+        self.counts = {}
         self._event = event
         self._depth = 0
         self._k = 0
+
+    def count(self, name: str, n: int = 1):
+        """Add ``n`` to what the captured step counts of ``name``."""
+        self.counts[name] = self.counts.get(name, 0) + n
 
     def _mark(self):
         ev = self._event()

@@ -39,9 +39,10 @@ device), ``prefill.dispatch`` (the ``model.prefill`` call),
 ``decode.sample`` (the argmax copied to the host, which waits on the
 device) and ``decode.slots`` (the slots' bookkeeping).  Counters:
 ``prefills``, ``prompt_tokens``, ``decode_steps``, and
-``decode_graph_replays`` (below).  Whether traced or not,
-``lifecycle`` keeps each request's submit, prefill start and first
-token times (``perf_counter`` seconds).
+``decode_graph_replays`` (below), beside the model's own (the MoE
+layers' ``moe_calls`` and ``moe_dropless_calls``).  Whether traced or
+not, ``lifecycle`` keeps each request's submit, prefill start and
+first token times (``perf_counter`` seconds).
 
 The decode step as one CUDA graph: a step's shapes are fixed for the
 engine's life (``max_batch`` slots, inactive ones running padding;
@@ -60,7 +61,26 @@ replayed step records ``step``, ``decode.dispatch`` (now the replay),
 ``decode.sample`` and ``decode.slots`` as before, and the model's device
 spans through ``SpanTracer.replayed``; the model's host-only spans
 (``mixer.*``, ``ffn.mlp``/``ffn.rwkv_cm``, ``lm_head``) are not
-recorded on a replayed step.
+recorded on a replayed step.  The model's counters run no Python on a
+replay either: the capture keeps what the step counted
+(``GraphSpans.counts``), and ``SpanTracer.replayed`` adds it again at
+every replay, one reading a counter.
+
+The B = 1 prefills as CUDA graphs too, where padding a prompt at its
+end is exact (``_pads_exactly``: causal self-attention over the whole
+cache in every layer, every FFN dense or an MoE layer that can drop no
+pair, and at least one such MoE layer, whose many small launches leave
+its eager prefill bound by the host): at the first admission on a CUDA
+device, one graph is captured for each length in steps of 128 up to
+``cache_len`` (``_PrefillGraphs``), and every admission replays the
+shortest that holds its prompt, padded with zeros, the logits read at
+its last token and the position set one past it.  The padding's keys
+and values sit in the cache past the prompt, where a causal decode
+masks them until it writes over them.  The engine still calls
+``Model.prefill`` for each admission (with ``graphs=``), which hands
+the call to the replay.  A replayed prefill records the model's device
+spans and counters as a replayed step does.  Other models, and every
+prefill on the CPU, run eagerly.
 """
 from __future__ import annotations
 
@@ -75,7 +95,9 @@ from torch._C._autograd import _profiler_enabled
 from repro_torch.kernels import (
     flash_attention, mamba_scan, mamba_scan_fused, moe_router, rwkv6_scan,
 )
+from repro_torch.models import moe as _moe
 from repro_torch.obs import trace as _trace
+from repro_torch.tree import tree_map
 
 # the model's kernels, whose wrappers count their launches
 KERNELS = (flash_attention, mamba_scan, mamba_scan_fused, moe_router,
@@ -132,6 +154,9 @@ class ServingEngine:
         self._toks = torch.zeros((max_batch, 1), dtype=torch.int32,
                                  device=self.device)
         self._graph = None
+        self._prefill_graphs = None
+        self._pads = self.device.type == "cuda" and \
+            _pads_exactly(model, cache_len)
         self.prefills = 0
         self.decode_steps = 0
         self.graph_replays = 0
@@ -215,8 +240,9 @@ class ServingEngine:
             if self._prefix is not None:
                 batch["prefix_emb"] = self._prefix
             with tr.span("prefill.dispatch", cat="serve"):
-                logits, st = self.model.prefill(self.params, batch,
-                                                cache_len=self.cache_len)
+                logits, st = self.model.prefill(
+                    self.params, batch, cache_len=self.cache_len,
+                    graphs=self._prefill_runner())
             with tr.span("prefill.first_token", cat="serve"):
                 first = int(self._sample(logits[:, -1, :],
                                          req.temperature)[0])
@@ -231,6 +257,14 @@ class ServingEngine:
                               stop_token=req.stop_token,
                               temperature=req.temperature,
                               generated=[first])
+
+    def _prefill_runner(self):
+        """The captured prefills where a padded prefill is exact on the
+        card (module doc), captured at the first admission; else None."""
+        if self._pads and self._prefill_graphs is None:
+            self._prefill_graphs = _PrefillGraphs(
+                self.model, self.params, self.cache_len, self.device)
+        return self._prefill_graphs
 
     def _sample(self, logits, temperature):
         """[n, V] logits -> [n] token ids on the host."""
@@ -325,6 +359,126 @@ class _DecodeGraph:
             fn.launches += n
         tr.replayed(self.spans, t_in, time.perf_counter())
         return self.logits
+
+
+def _pads_exactly(model, cache_len):
+    """Whether a B = 1 prefill of a prompt padded at its end up to any
+    length within ``cache_len`` gives the prompt's rows what it gives
+    them unpadded, and the model routes through a dropless MoE layer:
+    a decoder-only text model whose every layer is causal self-attention
+    over the whole cache and whose every FFN is dense or an MoE layer
+    that drops no pair at any such length (``moe.drops_nothing``).
+    Where an MoE layer could drop pairs, the padding would compete for
+    its capacity; a Mamba or RWKV state would run on through it; a
+    windowed ring could be overwritten by it.  Dense-only models would
+    pad exactly too; they stay eager, their prefills not measured."""
+    cfg = model.cfg
+    if cfg.is_encoder_decoder or cfg.modality != "text":
+        return False
+    routed = False
+    for kind in model.kinds:
+        if kind["mixer"] != "attn" or kind["window"] or kind["cross"] \
+                or not kind["causal"]:
+            return False
+        if kind["ffn"] == "moe":
+            if not all(_moe.drops_nothing(cfg, n)
+                       for n in _PrefillGraphs.lengths(cache_len)):
+                return False
+            routed = True
+        elif kind["ffn"] not in ("dense", "dense0"):
+            return False
+    return routed
+
+
+class _PrefillGraphs:
+    """B = 1 prefills captured as CUDA graphs, one for each length in
+    ``lengths(cache_len)`` (module doc).  A prompt runs in the shortest
+    that holds it: its tokens and then zeros in that graph's static
+    token buffer, the index of its last token in ``last``; the graph
+    writes the logits and the decode state into static buffers that
+    every graph shares (``run`` returns them; the engine copies the
+    state into a slot before the next replay writes them again).  The
+    graphs share one memory pool: they never run at once, and nothing
+    one leaves in the pool is read after another runs."""
+
+    STEP = 128
+
+    @classmethod
+    def lengths(cls, cache_len):
+        return sorted({min(n, cache_len)
+                       for n in range(cls.STEP, cache_len + cls.STEP,
+                                      cls.STEP)})
+
+    def __init__(self, model, params, cache_len, device):
+        before = [fn.launches for fn in KERNELS]
+        self.last = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.tokens, self.graphs = {}, {}
+        self.logits = self.state = None
+        pool = self.pool()
+        for n in reversed(self.lengths(cache_len)):   # the pool's largest first
+            toks = torch.zeros((1, n), dtype=torch.int64, device=device)
+            self.tokens[n] = toks
+
+            def prefill(toks=toks):
+                return model._prefill(params, {"tokens": toks}, cache_len,
+                                      self.last)
+            self.last.fill_(n - 1)
+            # eagerly first, counted nowhere: the shapes' libraries and
+            # handles loaded
+            with _trace.armed(_trace.NULL):
+                logits, st = prefill()
+            if self.logits is None:
+                self.logits = logits.clone()
+                self.state = tree_map(torch.clone, st)
+            del logits, st
+
+            def step(prefill=prefill):
+                logits, st = prefill()
+                self.logits.copy_(logits)
+                tree_map(torch.Tensor.copy_, self.state, st)
+            spans = _trace.GraphSpans()
+            n0 = [fn.launches for fn in KERNELS]
+            with _trace.armed(spans):
+                graph = self.capture(step, pool)
+            self.graphs[n] = (graph, spans, [fn.launches - m for fn, m
+                                             in zip(KERNELS, n0)])
+        # what a replay launches; the eager runs and captures count none
+        for fn, m in zip(KERNELS, before):
+            fn.launches = m
+
+    # the capture itself; a CPU test replaces both with eager stand-ins
+    @staticmethod
+    def pool():
+        return torch.cuda.graph_pool_handle()
+
+    @staticmethod
+    def capture(fn, pool):
+        """``fn`` captured (not run) as a CUDA graph in ``pool``."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+        return graph
+
+    def run(self, batch):
+        """(logits [1, 1, V], state) of ``batch``'s B = 1 prompt."""
+        toks = batch["tokens"]
+        n = toks.shape[1]
+        m = next(k for k in sorted(self.tokens) if k >= n)
+        buf = self.tokens[m]
+        buf[:, :n].copy_(toks)
+        buf[:, n:].zero_()
+        self.last.fill_(n - 1)
+        graph, spans, launches = self.graphs[m]
+        t_in = time.perf_counter()
+        graph.replay()
+        for fn, k in zip(KERNELS, launches):
+            fn.launches += k
+        tr = _trace.current()
+        tr.replayed(spans, t_in, time.perf_counter())
+        # read now: another replay of this graph in the same admission
+        # pass would record over its events
+        tr.resolve()
+        return self.logits, self.state
 
 
 def _params_device(params):

@@ -115,9 +115,13 @@ def test_engine_records_its_spans_under_a_profiler(served_model):
     assert {r["depth"] for r in spans if r["name"] in ("admit", "step")} \
         == {0}
     n = len(PROMPTS)
+    # the MoE layers count each call; at capacity factor 1.25 none is
+    # dropless
+    n_moe = sum(kd["ffn"] == "moe" for kd in model.kinds)
     assert eng.tracer.counters == {
         "prefills": n, "prompt_tokens": sum(map(len, PROMPTS)),
-        "decode_steps": eng.decode_steps}
+        "decode_steps": eng.decode_steps,
+        "moe_calls": n_moe * (n + eng.decode_steps)}
     assert eng.tracer.dropped == 0
 
 
